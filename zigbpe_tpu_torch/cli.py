@@ -1,0 +1,129 @@
+"""Command-line interface of the PyTorch port: train / encode / decode /
+demo, with the same flags and output formats as ``zigbpe_tpu.cli`` plus
+``--device`` (default ``cuda``).
+
+    python -m zigbpe_tpu_torch.cli demo --corpus taylorswift.txt
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from .models.basic_tokenizer import BasicTokenizer
+from .utils import fileio
+
+# main.zig:25 probe string, reproduced by `demo`
+PROBE = "hello world!!!? (안녕하세요!) lol123 😉"
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--backend", choices=["auto", "device", "host", "oracle"], default="auto",
+        help="device=PyTorch on --device, host=NumPy, oracle=pure Python",
+    )
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+
+def cmd_train(args) -> int:
+    data = fileio.read_corpus(args.corpus)
+    tok = BasicTokenizer(device=args.device)
+    t0 = time.time()
+    backend = "device" if args.backend == "auto" else args.backend
+    kwargs = {"chunk_rounds": args.chunk_rounds} if backend == "device" else {}
+    tok.train(data, args.vocab, verbose=args.verbose, backend=backend, **kwargs)
+    wall = time.time() - t0
+    tok.save_merges(args.out)
+    print(
+        f"trained {len(tok.merges)} merges on {len(data)} bytes in {wall * 1e3:.0f} ms "
+        f"({len(data) / max(wall, 1e-9) / 1e6:.1f} MB/s) -> {args.out}",
+        file=sys.stderr,
+    )
+    if args.time_stats:
+        tok.time_stats.print_report()
+    return 0
+
+
+def cmd_encode(args) -> int:
+    tok = BasicTokenizer.from_merges_file(args.merges, device=args.device)
+    data = fileio.read_file(args.file) if args.file else args.text.encode("utf-8")
+    ids = tok.encode(data, backend=args.backend)
+    # main.zig:28-30 prints ids space-separated
+    print(" ".join(str(i) for i in ids))
+    return 0
+
+
+def cmd_decode(args) -> int:
+    tok = BasicTokenizer.from_merges_file(args.merges, device="cpu")
+    if args.file:
+        ids = [int(t) for t in fileio.read_file(args.file).split()]
+    else:
+        ids = [int(t) for t in args.ids.replace(",", " ").split()]
+    sys.stdout.buffer.write(tok.decode(ids))
+    sys.stdout.buffer.write(b"\n")
+    return 0
+
+
+def cmd_demo(args) -> int:
+    """Reproduce the reference demo (main.zig:8-43): read corpus ->
+    train(vocab) -> serialize merges -> encode probe -> decode -> timing."""
+    data = fileio.read_file(args.corpus)
+    tok = BasicTokenizer(device=args.device)
+    t0 = time.time()
+    backend = "device" if args.backend == "auto" else args.backend
+    tok.train(data, args.vocab, backend=backend)
+    tok.save_merges(args.out)
+    ids = tok.encode(PROBE)
+    print(" ".join(str(i) for i in ids))
+    print(tok.decode(ids).decode("utf-8"))
+    print(f"Training completed in {(time.time() - t0) * 1e3:.0f} ms", file=sys.stderr)
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="zigbpe-torch", description=__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train a merge table on a corpus")
+    t.add_argument("corpus", nargs="+", help="corpus file(s), concatenated")
+    t.add_argument("--vocab", type=int, default=300)
+    t.add_argument("--out", default="merges.txt")
+    t.add_argument("--verbose", action="store_true")
+    t.add_argument("--chunk-rounds", type=int, default=64)
+    t.add_argument("--time-stats", action="store_true")
+    _add_common(t)
+    t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("encode", help="encode text/file to token ids")
+    e.add_argument("--merges", required=True)
+    g = e.add_mutually_exclusive_group(required=True)
+    g.add_argument("--text")
+    g.add_argument("--file")
+    _add_common(e)
+    e.set_defaults(fn=cmd_encode)
+
+    d = sub.add_parser("decode", help="decode token ids to text")
+    d.add_argument("--merges", required=True)
+    g = d.add_mutually_exclusive_group(required=True)
+    g.add_argument("--ids", help="ids, space- or comma-separated")
+    g.add_argument("--file", help="file of whitespace-separated ids")
+    d.set_defaults(fn=cmd_decode)
+
+    m = sub.add_parser("demo", help="reference demo: train + probe round-trip")
+    m.add_argument("--corpus", default="taylorswift.txt")
+    m.add_argument("--vocab", type=int, default=300)
+    m.add_argument("--out", default="merges.txt")
+    _add_common(m)
+    m.set_defaults(fn=cmd_demo)
+
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,176 @@
+"""Fused greedy merge + row-local compaction: the CUDA kernel's wrapper and
+its plain PyTorch twin.
+
+Counterpart of ``zigbpe_tpu/ops/pallas/merge.py`` (``merge_pass_pallas_multi``
+and ``merge_pass_pallas``); the kernel is ``csrc/merge.cu``.
+
+Layout contract — **row-local prefixes**: the token array is a sequence of
+128-token rows, each a valid-token prefix with a PAD tail; the LOGICAL
+stream is the concatenation of the row prefixes. A row's last valid token
+pairs with the next row's head. Compaction after a merge is within-row only,
+so a globally compacted stream is itself a valid layout, and the output
+array equals the JAX kernel's element for element. Every row that precedes
+a row with valid tokens must be non-empty; a pass can empty a row only if it
+entered with fewer than 2 tokens, so the pass reports ``min_kept`` (the
+smallest post-pass population of any non-empty input row but the stream's
+last one) and callers globally recompact when it drops to <= 1.
+
+Both versions rewrite ``tokens`` IN PLACE (where the JAX kernel aliases its
+output to its input) and return ``(tokens, stats)`` with
+``stats = [nhits_0 .. nhits_{K-1}, new_length, min_kept]`` (int32, on the
+tokens' device).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import LAYOUT, _build
+
+PAD = -1
+BIG = 2**31 - 1
+MAX_SLOTS = 4
+
+
+def merge_pass_multi_reference(tokens: torch.Tensor, table: torch.Tensor):
+    """Plain PyTorch twin of the merge kernel (same contract, same arrays).
+
+    ``table``: int32[K, 3] of (first, second, new_token) slots, a disabled
+    slot being (-2, -2, -2). The enabled slots must form a valid
+    simultaneous group: pairwise distinct, chain-free both ways, no slot
+    referencing another's minted token, first != second except possibly in
+    slot 0 (which keeps leftmost-greedy overlap parity). Under that contract
+    simultaneous application equals sequential replay in slot order.
+    """
+    _check_shapes(tokens, table)
+    K = table.shape[0]
+    t2 = tokens.view(-1, LAYOUT)
+    R = t2.shape[0]
+    dev = tokens.device
+    valid = t2 >= 0
+    pad_col = torch.full((R, 1), PAD, dtype=t2.dtype, device=dev)
+    nxt_in = torch.cat([t2[:, 1:], pad_col], dim=1)
+    head_next = torch.cat([t2[1:, 0], pad_col[:1, 0]])  # next row's head
+    is_last = valid & (nxt_in < 0)
+    nxt = torch.where(is_last, head_next[:, None], nxt_in)
+
+    a, b, x = (table[:, i].view(K, 1, 1) for i in range(3))
+    cands = valid & (t2 == a) & (nxt == b) & (nxt >= 0)  # (K, R, 128)
+
+    # slot-0 parity: a candidate hits iff its logical rank minus the rank of
+    # the last non-candidate before it is odd (-1 before the stream start)
+    c0 = cands[0]
+    rowpop = valid.sum(1)
+    col = torch.arange(LAYOUT, device=dev)
+    grank = (torch.cumsum(rowpop, 0) - rowpop)[:, None] + col
+    ncr = torch.where(c0 | ~valid, -1, grank)
+    last_nc = torch.cummax(ncr.reshape(-1), 0).values.view(R, LAYOUT)
+    parity_hit = c0 & (((grank - last_nc) & 1) == 1)
+    hits = cands.clone()
+    hits[0] = torch.where(table[0, 0] == table[0, 1], parity_hit, c0)
+    hit = hits.any(0)
+
+    written = t2
+    for m in range(K):
+        written = torch.where(hits[m], x[m], written)
+    edge_hit = (hit & is_last).any(1)
+    killed = torch.zeros_like(valid)
+    killed[:, 1:] = hit[:, :-1]
+    killed[1:, 0] |= edge_hit[:-1]
+    killed &= valid
+    keep = valid & ~killed
+
+    dest = torch.where(keep, torch.cumsum(keep, 1) - 1, LAYOUT)
+    out = torch.full((R, LAYOUT + 1), PAD, dtype=t2.dtype, device=dev)
+    out.scatter_(1, dest, torch.where(keep, written, PAD))
+    t2.copy_(out[:, :LAYOUT])
+
+    rowkept = keep.sum(1)
+    nonempty = torch.nonzero(rowpop > 0).flatten()
+    interior = rowkept[nonempty[:-1]]
+    min_kept = interior.min() if interior.numel() else torch.tensor(BIG, device=dev)
+    stats = torch.cat([
+        hits.sum((1, 2)), keep.sum().view(1), min_kept.view(1),
+    ]).to(torch.int32)
+    return tokens, stats
+
+
+def merge_pass_multi(tokens: torch.Tensor, table: torch.Tensor):
+    """Apply up to 4 merges at once in one pass, in place (see the module
+    docstring and :func:`merge_pass_multi_reference` for the contract).
+
+    A CPU tensor runs the plain twin. A CUDA tensor launches the CUDA
+    kernel ``csrc/merge.cu`` (built at first launch) or raises; any other
+    device raises. ``merge_pass_multi.launches`` counts kernel launches.
+    """
+    if tokens.device.type == "cpu":
+        return merge_pass_multi_reference(tokens, table)
+    return _launch(tokens, table)
+
+
+merge_pass_multi.launches = 0
+
+
+def merge_pass(tokens: torch.Tensor, first: int, second: int, new_token: int):
+    """Single-pair pass (K = 1): stats are [nhits, new_length, min_kept]."""
+    table = torch.tensor([[first, second, new_token]], dtype=torch.int32,
+                         device=tokens.device)
+    return merge_pass_multi(tokens, table)
+
+
+def _check_shapes(tokens: torch.Tensor, table: torch.Tensor) -> None:
+    if tokens.dtype != torch.int32 or tokens.dim() != 1:
+        raise ValueError(f"tokens must be 1-D int32, got {tokens.dtype} {tuple(tokens.shape)}")
+    n = tokens.shape[0]
+    if n == 0 or n % LAYOUT:
+        raise ValueError(f"token capacity {n} must be a positive multiple of {LAYOUT}")
+    if table.dtype != torch.int32 or table.dim() != 2 or table.shape[1] != 3:
+        raise ValueError(f"table must be int32 [K, 3], got {table.dtype} {tuple(table.shape)}")
+    if not 1 <= table.shape[0] <= MAX_SLOTS:
+        raise ValueError(f"table holds {table.shape[0]} slots; 1 to {MAX_SLOTS} allowed")
+    if table.device != tokens.device:
+        raise ValueError(f"table on {table.device}, tokens on {tokens.device}")
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _build.library("merge")
+    lib.zbpe_merge_work_ints.restype = ctypes.c_longlong
+    lib.zbpe_merge_work_ints.argtypes = [ctypes.c_longlong]
+    lib.zbpe_merge_pass.restype = ctypes.c_int
+    lib.zbpe_merge_pass.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    return lib
+
+
+def _launch(tokens: torch.Tensor, table: torch.Tensor):
+    if not tokens.is_cuda:
+        raise ValueError(
+            f"the merge kernel runs on CUDA tensors (or the twin on CPU ones); "
+            f"got a tensor on {tokens.device}"
+        )
+    _check_shapes(tokens, table)
+    if not (tokens.is_contiguous() and table.is_contiguous()):
+        raise ValueError("tokens and table must be contiguous")
+    if tokens.data_ptr() % 16:
+        raise ValueError("tokens must be 16-byte aligned")
+    lib = _library()
+    n, K = tokens.shape[0], table.shape[0]
+    work = torch.empty(lib.zbpe_merge_work_ints(n), dtype=torch.int32,
+                       device=tokens.device)
+    stats = torch.empty(K + 2, dtype=torch.int32, device=tokens.device)
+    with torch.cuda.device(tokens.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.zbpe_merge_pass(
+            tokens.data_ptr(), n, table.data_ptr(), K, work.data_ptr(),
+            stats.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"merge kernel launch failed: CUDA error {rc}")
+    merge_pass_multi.launches += 1
+    return tokens, stats
