@@ -5,8 +5,9 @@
 
 Phases, each of which must pass:
 
-1. build   — compile the CUDA kernels of ``zigbpe_tpu_torch/csrc/`` (nvcc,
-             sm_90a) into ``zigbpe_tpu_torch/_build/``;
+1. build   — compile the CUDA kernels of ``zigbpe_tpu_torch/csrc/`` (one
+             nvcc per source, all at once, sm_90a) into
+             ``zigbpe_tpu_torch/_build/`` and print their ptxas lines;
 2. kernel  — the merge kernel against its plain PyTorch twin (run on a CPU
              copy) at 1 tile, many tiles and 2^25 tokens: K = 1 with a != b,
              K = 1 with a == b and runs spanning many tiles, K = 4 groups
@@ -15,18 +16,36 @@ Phases, each of which must pass:
              hit counts / new length must be equal and the min_kept <= 1
              decision must agree. Then both are timed at 2^25 tokens with
              CUDA events;
-3. golden  — BasicTokenizer(device="cuda") trains the conformance corpus to
+3. encode-kernel — the encode kernel against its twin (on a CPU copy) and
+             the oracle, at rows of 1024 and 32768 tokens: every case of
+             tests/test_encode_kernel.py, 8 seeds of the adversarial fuzz of
+             tests/test_encode_fuzz.py (rebuilt here), and one 32768-byte run
+             of ``a`` under doubling merges;
+4. golden  — BasicTokenizer(device="cuda") trains the conformance corpus to
              vocab 300 (exactly tests/data/merges.txt), encodes it on the
              card (128,451 tokens, equal to the CPU twin path) and decodes
              it back; ``python -m zigbpe_tpu_torch.cli demo`` round-trips the
              probe;
-4. scale   — the corpus tiled to 32 MiB, trained to vocab 512 on the card
+5. scale   — the corpus tiled to 32 MiB, trained to vocab 512 on the card
              and cross-checked against the native C++ trainer
              (zigbpe_tpu/native/fastio.cpp, built with g++ and called by
              path); the 32 MiB corpus encoded on the card equals the native
              encoder's ids;
-5. count   — the merge kernel's launch counter, zeroed before phase 3, is
-             > 0 after phase 4.
+6. serving — BASELINE.json config 3: a 1024-merge table trained by the
+             native trainer on the first 1 MiB, scheduled with
+             schedule_merges(cap=32). BasicTokenizer(device="cuda")
+             .encode_batch on the corpus cut into 101 documents (L = 16384)
+             equals the CPU path and the native encoder, and on 1024 of the
+             1 GiB's 32768-byte rows (L = 32768) equals the twin on the card
+             and, on 16 rows, the native encoder; each call is one launch.
+             The corpus tiled to 1 GiB (32,768 rows of 32,768 tokens) goes
+             through the encode kernel in one launch, and 4096 rows spread
+             over the batch equal the twin (run on the card) and 64 rows the
+             native encoder. Times the kernel and the twin on 1024 rows, the
+             kernel on the whole 1 GiB and encode_batch of the 1024 rows;
+7. count   — each kernel's launch counter, zeroed just before its path
+             (merge: phases 4-5; encode: the two encode_batch calls of
+             phase 6), is > 0 just after it.
 
 Prints each phase's result and wall time, then a JSON line of kernels, the
 card's name and power limit, and as the last line
@@ -45,6 +64,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -56,6 +76,12 @@ PROBE = "hello world!!!? (안녕하세요!) lol123 😉"
 SCALE_BYTES = 32 << 20  # bench.py's headline corpus: 32 MiB
 SCALE_VOCAB = 512       # 256 merges
 GOLDEN_TOKENS = 128451
+SERVE_BYTES = 1 << 30   # BASELINE.json config 3: 1 GiB ...
+SERVE_ROW = 32768       # ... as rows of 32768 tokens ...
+SERVE_MERGES = 1024     # ... under a frozen 1K-merge table
+SERVE_TABLE_BYTES = 1 << 20  # trained on the first 1 MiB, as bench.py does
+SERVE_DOCS = 1024       # config 3's rows sent through encode_batch
+KERNELS = ("merge", "encode")
 
 
 class PhaseError(RuntimeError):
@@ -155,12 +181,21 @@ def phase_build():
     from zigbpe_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    path = _build.build("merge")
-    secs = time.perf_counter() - t0
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-    log(f"[build] ok: {path.relative_to(ROOT)} in {secs:.2f} s")
+
+    def timed(name):
+        t = time.perf_counter()
+        path = _build.build(name)
+        return path, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(timed, KERNELS))
+    for name, (path, secs) in zip(KERNELS, built):
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+        log(f"[build] ok: {path.relative_to(ROOT)} in {secs:.2f} s")
+    log(f"[build] both kernels built in {time.perf_counter() - t0:.2f} s")
+    return {name: secs for name, (_, secs) in zip(KERNELS, built)}
 
 
 def phase_kernel(torch, group, group2):
@@ -328,6 +363,283 @@ def phase_scale(torch, card):
         f"({nat_enc_s:.1f} s)")
 
 
+# ------------------------------------------------------ encode kernel cases
+
+JAX_FUZZ_SEEDS = (0, 1, 2, 3, 5, 6, 7, 8)  # both groupers, caps 4, 8 and 16
+FUZZ_PMAX = 32
+
+
+def adversarial_table(rng, n_merges):
+    """tests/test_encode_fuzz.py's generator: tables biased toward the
+    grouping predicate's hard cases (repeated pairs, minted tokens fed back
+    in, chains, a == b, re-minted and far out-of-range ids)."""
+    alphabet = [97, 98, 99, 100]
+    minted = []
+    table = []
+    next_new = 256
+    for _ in range(n_merges):
+        pool = alphabet + minted
+        r = rng.random()
+        if r < 0.15 and minted:
+            a = b = int(rng.choice(minted))
+        elif r < 0.3:
+            a = b = int(rng.choice(alphabet))
+        else:
+            a = int(rng.choice(pool))
+            b = int(rng.choice(pool))
+        r2 = rng.random()
+        if r2 < 0.08:
+            x = int(rng.choice([9000, 40000, 65535]))
+        elif r2 < 0.16 and minted:
+            x = int(rng.choice(minted))
+        else:
+            x = next_new
+            next_new += 1
+        minted.append(x)
+        table.append((a, b, x))
+    return table
+
+
+def fuzz_docs(rng, k):
+    out = [bytes(rng.integers(97, 101, int(rng.integers(0, 600)), dtype=np.uint8))
+           for _ in range(k)]
+    return out + [b"", b"a" * 37]
+
+
+def encode_cases():
+    """(name, docs, merges, grouped table) of tests/test_encode_kernel.py's
+    cases (grouped as encode_rows groups them) and of the chosen fuzz seeds
+    (grouped and padded to FUZZ_PMAX groups as the fuzz test does)."""
+    from zigbpe_tpu_torch.models import oracle
+    from zigbpe_tpu_torch.ops.kernels import encode as ke
+
+    rng = np.random.default_rng(21)  # drawn in test_encode_kernel.py's order
+    data = bytes(rng.integers(97, 104, 4000, dtype=np.uint8))
+    trained = oracle.train(data, 300)
+    docs = [bytes(rng.integers(97, 104, int(rng.integers(1, 900)), dtype=np.uint8))
+            for _ in range(4)] + [b"", b"a", b"aaaaaaa"]
+    independent = [(97, 97, 256), (256, 97, 257), (98, 99, 258)]
+    cases = [
+        ("trained table", docs, trained),
+        ("rows independent a", [b"aaaab bc", b"zzz"], independent),
+        ("rows independent b", [b"aaaab bc", b"aaaa", b"bcbcbc"], independent),
+        ("row collapsing", [b"a" * 8], [(97, 97, 256), (256, 256, 257), (257, 257, 258)]),
+        ("out-of-range ids", [b"abcabc"], [(97, 98, 9000), (9000, 99, 257)]),
+        ("PAD rows in table", [b"abcabc"], [(97, 98, 256), (-1, -1, -1), (256, 99, 257)]),
+        ("empty table", [b"abcabc", b""], []),
+    ]
+    out = [(name, d, m, ke.group_merges(np.asarray(m, np.int32).reshape(-1, 3), cap=16))
+           for name, d, m in cases]
+    for seed in JAX_FUZZ_SEEDS:
+        rng = np.random.default_rng(1000 + seed)
+        table = adversarial_table(rng, int(rng.integers(1, 25)))
+        docs = fuzz_docs(rng, 3)
+        cap = int(rng.choice([4, 8, 16]))
+        grouper = ke.schedule_merges if seed % 2 else ke.group_merges
+        gt, gl = grouper(np.asarray(table, np.int32), cap=cap)
+        gt_p = np.full((FUZZ_PMAX, cap, 3), -1, np.int32)
+        gt_p[: gt.shape[0]] = gt
+        gl_p = np.zeros((FUZZ_PMAX,), np.int32)
+        gl_p[: gl.shape[0]] = gl
+        out.append((f"fuzz seed {seed} {grouper.__name__} cap={cap}", docs, table,
+                    (gt_p, gl_p)))
+    doubling = [(97, 97, 256)] + [(256 + i, 256 + i, 257 + i) for i in range(14)]
+    out.append(("32768-byte run of a, doubling", [b"a" * 32768], doubling,
+                ke.schedule_merges(np.asarray(doubling, np.int32), cap=32)))
+    return out
+
+
+def encode_both(torch, buf, gt, gl):
+    """The encode kernel on the card and its twin on a CPU copy, on the same
+    rows. Returns the twin's (out, lengths) as numpy and max |kernel - twin|."""
+    from zigbpe_tpu_torch.ops.kernels import encode as ke
+
+    gout, glen = ke.encode_rows_grouped(torch.from_numpy(buf).cuda(),
+                                        torch.from_numpy(gt).cuda(),
+                                        torch.from_numpy(gl).cuda())
+    torch.cuda.synchronize()
+    cout, clen = ke.encode_rows_grouped_reference(
+        torch.from_numpy(buf), torch.from_numpy(gt), torch.from_numpy(gl))
+    err = max(int((gout.cpu().long() - cout.long()).abs().max()),
+              int((glen.cpu().long() - clen.long()).abs().max()))
+    return cout.numpy(), clen.numpy(), err
+
+
+def phase_encode_kernel(torch):
+    from zigbpe_tpu_torch.models import oracle
+
+    worst = 0
+    for name, docs, merges, (gt, gl) in encode_cases():
+        live = [tuple(m) for m in merges if m[2] >= 0]
+        for L in (1024, 32768):
+            if max(len(d) for d in docs) > L:
+                continue
+            buf = np.full((len(docs), L), -1, np.int32)
+            for i, d in enumerate(docs):
+                buf[i, : len(d)] = np.frombuffer(d, np.uint8)
+            out, lens, err = encode_both(torch, buf, gt, gl)
+            worst = max(worst, err)
+            rows = [out[i, : lens[i]].tolist() for i in range(len(docs))]
+            same = err == 0 and rows == [oracle.encode(d, live) for d in docs]
+            log(f"  {name:40s} L={L:>5} B={len(docs)} P={gt.shape[0]:>2} cap={gt.shape[1]:>2} "
+                f"max_abs_err={err} {'ok' if same else 'MISMATCH'}")
+            require(same, f"encode kernel != twin or oracle on {name} at L={L}")
+    log(f"[encode-kernel] ok: kernel == twin == oracle on every case, max_abs_err {worst}")
+    return worst
+
+
+def time_call(torch, fn, reps):
+    """Mean ms of fn() over ``reps`` runs, CUDA events around each run."""
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return sum(times) / len(times), times
+
+
+def phase_serving(torch, card, build_s):
+    from zigbpe_tpu_torch import BasicTokenizer
+    from zigbpe_tpu_torch.ops import core
+    from zigbpe_tpu_torch.ops.kernels import encode as ke
+
+    lib = native_library()
+    data = tiled_corpus(SERVE_BYTES)
+    t0 = time.perf_counter()
+    table = native_train(lib, data[:SERVE_TABLE_BYTES], 256 + SERVE_MERGES)
+    require(len(table) == SERVE_MERGES, f"native trainer gave {len(table)} merges")
+    gt_np, gl_np = ke.schedule_merges(np.asarray(table, np.int32), cap=32)
+    P = gt_np.shape[0]
+    digest = hashlib.sha256(np.asarray(table, np.int32).tobytes()).hexdigest()[:12]
+    log(f"  table: {SERVE_MERGES} merges trained natively on 1 MiB (sha256 {digest}), "
+        f"scheduled into P={P} fused passes of cap 32 ({time.perf_counter() - t0:.1f} s)")
+
+    # the user's path, its launch count from zero: encode_batch on documents
+    # of mixed length (L = 16384, the first call schedules the table), then
+    # on SERVE_DOCS of config 3's 32768-byte rows (L = 32768). Each call is
+    # one launch of the encode kernel.
+    corpus = CORPUS.read_bytes()
+    cuts = np.sort(np.random.default_rng(3).choice(np.arange(1, len(corpus)), 99,
+                                                   replace=False)).tolist()
+    docs = [corpus[a:b] for a, b in zip([0, *cuts], [*cuts, len(corpus)])] + [b""]
+    B = SERVE_BYTES // SERVE_ROW
+    serve_idx = np.linspace(0, B - 1, SERVE_DOCS).astype(np.int64)
+    row_docs = [data[i * SERVE_ROW:(i + 1) * SERVE_ROW] for i in serve_idx.tolist()]
+    tok = BasicTokenizer(table, device="cuda")
+    ke.encode_rows_grouped.launches = 0
+    t1 = time.perf_counter()
+    ids = tok.encode_batch(docs)
+    batch_s = time.perf_counter() - t1
+    mixed_launches = ke.encode_rows_grouped.launches
+    t = time.perf_counter()
+    row_ids = tok.encode_batch(row_docs)
+    row_s = [time.perf_counter() - t]
+    launches = ke.encode_rows_grouped.launches
+    require(mixed_launches == 1, f"encode_batch of the mixed documents launched the "
+            f"encode kernel {mixed_launches} times, want 1")
+    require(launches == 2, f"encode_batch of {SERVE_DOCS} rows of {SERVE_ROW} bytes "
+            f"launched the encode kernel {launches - mixed_launches} times, want 1")
+    again = []  # kept, so that no timed span frees an earlier call's lists
+    for _ in range(2):  # cached table: the call's steady latency
+        t = time.perf_counter()
+        again.append(tok.encode_batch(row_docs))
+        row_s.append(time.perf_counter() - t)
+    require(all(a == row_ids for a in again), "repeated encode_batch calls differ")
+    del again
+
+    require(ids == BasicTokenizer(table, device="cpu").encode_batch(docs),
+            "card encode_batch differs from the CPU path")
+    for d, got in zip(docs, ids):
+        require(got == native_encode(lib, d, table).tolist(),
+                "card encode_batch differs from the native C++ encoder")
+    L_docs = max(len(d) for d in docs)
+    log(f"[serving] ok: encode_batch of {len(docs)} documents (longest {L_docs} bytes, "
+        f"1 launch) in {batch_s:.3f} s == CPU path == native encoder")
+
+    # and at config 3 size: 1 GiB as 32768 rows of 32768 tokens, uploaded
+    # as uint8 and widened on the card
+    t2 = time.perf_counter()
+    tokens, _ = core.pad_tokens(data, SERVE_BYTES, "cuda")
+    rows = tokens.view(B, SERVE_ROW)
+    gt, gl = torch.from_numpy(gt_np).cuda(), torch.from_numpy(gl_np).cuda()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t2
+
+    tw_out, tw_len = ke.encode_rows_grouped_reference(
+        rows[torch.from_numpy(serve_idx).cuda()], gt, gl)
+    tw_out, tw_len = tw_out.cpu().numpy(), tw_len.cpu().numpy()
+    for k, got in enumerate(row_ids):
+        require(np.array_equal(np.asarray(got, np.int32), tw_out[k, : tw_len[k]]),
+                f"encode_batch row {serve_idx[k]} differs from the twin")
+    for k in np.linspace(0, SERVE_DOCS - 1, 16).astype(np.int64).tolist():
+        require(row_ids[k] == native_encode(lib, row_docs[k], table).tolist(),
+                f"encode_batch row {serve_idx[k]} differs from the native C++ encoder")
+    log(f"[serving] ok: encode_batch of {SERVE_DOCS} documents of {SERVE_ROW} bytes "
+        f"(L = {SERVE_ROW}, 1 launch) == twin on the card, 16 of them == native "
+        f"encoder; host clock per call {', '.join(f'{s * 1e3:.3f}' for s in row_s)} ms "
+        f"(first, then 2 more); {card}")
+
+    t3 = time.perf_counter()
+    direct0 = ke.encode_rows_grouped.launches
+    out, lens = ke.encode_rows_grouped(rows, gt, gl)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t3
+    require(ke.encode_rows_grouped.launches - direct0 == 1, "1 GiB replay: not 1 launch")
+
+    lens_h = lens.cpu().numpy()
+    n_out = int(lens_h.astype(np.int64).sum())
+    require(out.shape == (B, SERVE_ROW) and out.dtype == torch.int32, "output shape")
+    require(bool((lens_h > 0).all()), "a row encoded to nothing")
+    require(torch.equal((out >= 0).sum(1, dtype=torch.int32), lens), "lengths != valid counts")
+    require(int(out.max()) < 256 + SERVE_MERGES and int(out.min()) >= -1, "ids out of range")
+    worst = 0
+    pick = np.unique(np.linspace(0, B - 1, min(4096, B)).astype(np.int64))
+    t4 = time.perf_counter()
+    for chunk in np.array_split(pick, 4):
+        idx = torch.from_numpy(chunk).cuda()
+        tw_out, tw_len = ke.encode_rows_grouped_reference(rows[idx], gt, gl)
+        worst = max(worst, int((tw_out - out[idx]).abs().max()),
+                    int((tw_len - lens[idx]).abs().max()))
+    require(worst == 0, f"encode kernel != twin on the 1 GiB batch (max_abs_err {worst})")
+    twin_check_s = time.perf_counter() - t4
+    for i in np.linspace(0, B - 1, 64).astype(np.int64).tolist():
+        want = native_encode(lib, data[i * SERVE_ROW:(i + 1) * SERVE_ROW], table)
+        require(np.array_equal(out[i, : lens_h[i]].cpu().numpy(), want),
+                f"row {i} differs from the native C++ encoder")
+    log(f"[serving] ok: 1 GiB = {B} rows x {SERVE_ROW} tokens -> {n_out} tokens "
+        f"({SERVE_BYTES / n_out:.4f} bytes/token); {len(pick)} rows == twin (max_abs_err {worst}, "
+        f"{twin_check_s:.1f} s), 64 rows == native encoder; upload {upload_s:.3f} s, "
+        f"first replay {first_s:.3f} s")
+    del out, lens
+
+    sub = rows[:1024]
+    ms, ms_runs = time_call(torch, lambda: ke.encode_rows_grouped(sub, gt, gl), 5)
+    plain, plain_runs = time_call(
+        torch, lambda: ke.encode_rows_grouped_reference(sub, gt, gl), 2)
+    full, full_runs = time_call(torch, lambda: ke.encode_rows_grouped(rows, gt, gl), 3)
+    mbps = SERVE_BYTES / 1e6 / (full / 1e3)
+    smem = ke._library().zbpe_encode_smem_bytes(SERVE_ROW, P, 32)
+    log(f"[serving] encode kernel, 1024 rows x {SERVE_ROW} tokens, P={P}: kernel "
+        f"{ms:.4f} ms (mean of 5: {', '.join(f'{t:.4f}' for t in ms_runs)}), plain "
+        f"PyTorch twin {plain:.4f} ms (mean of 2: "
+        f"{', '.join(f'{t:.4f}' for t in plain_runs)}) (CUDA events); {card}")
+    log(f"[serving] encode kernel over 1 GiB ({B} x {SERVE_ROW}): {full:.3f} ms "
+        f"(mean of 3: {', '.join(f'{t:.3f}' for t in full_runs)}) = {mbps:.1f} MB/s; "
+        f"dynamic shared memory {smem} B per block; build {build_s:.2f} s; {card}")
+    return {"launches": launches, "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+
+
+def run_phase(name, fn, *args):
+    t0 = time.perf_counter()
+    result = fn(*args)
+    log(f"[{name}] wall {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -338,24 +650,28 @@ def main() -> int:
     card = card_line()
     log(card)
     sys.path.insert(0, str(ROOT))
-    from zigbpe_tpu_torch.ops.kernels import merge as km
+    from zigbpe_tpu_torch.ops.kernels import encode as ke, merge as km
 
     t_all = time.perf_counter()
-    phase_build()
+    build_s = run_phase("build", phase_build)
     # a real K=4 group: the golden run's trained table
     golden = [tuple(int(v) for v in line.split(",")) for line in GOLDEN.read_text().split()]
     group = first_group(golden)
     group2 = first_group(golden[golden.index(tuple(group[-1])) + 1:])
     log(f"  real groups from the golden training: {group} then {group2}")
-    max_err = phase_kernel(torch, group, group2)
-    timing = phase_timing(torch, group)
+    max_err = run_phase("kernel", phase_kernel, torch, group, group2)
+    timing = run_phase("timing", phase_timing, torch, group)
+    enc_err = run_phase("encode-kernel", phase_encode_kernel, torch)
 
     km.merge_pass_multi.launches = 0
-    phase_golden(torch)
-    phase_scale(torch, card)
+    run_phase("golden", phase_golden, torch)
+    run_phase("scale", phase_scale, torch, card)
     launches = km.merge_pass_multi.launches
-    require(launches > 0, "the merge kernel never launched on the main path")
-    log(f"[count] ok: merge kernel launched {launches} times on the main path")
+    serving = run_phase("serving", phase_serving, torch, card, build_s["encode"])
+    require(launches > 0, "the merge kernel never launched on the train/encode path")
+    require(serving["launches"] > 0, "the encode kernel never launched on the serving path")
+    log(f"[count] ok: merge kernel launched {launches} times on the train/encode path, "
+        f"encode kernel {serving['launches']} times on the encode_batch path")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     ms, plain = timing["K=4"]
@@ -364,6 +680,13 @@ def main() -> int:
         "source": "zigbpe_tpu_torch/csrc/merge.cu",
         "replaces": "zigbpe_tpu/ops/pallas/merge.py:222",
         "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+    }, {
+        "name": ke.encode_rows_grouped.__name__, "route": "cuda",
+        "source": "zigbpe_tpu_torch/csrc/encode.cu",
+        "replaces": "zigbpe_tpu/ops/pallas/encode.py:238",
+        "launches": serving["launches"],
+        "max_abs_err": max(enc_err, serving["max_abs_err"]),
+        "ms": serving["ms"], "plain_ms": serving["plain_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

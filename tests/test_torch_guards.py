@@ -11,6 +11,7 @@ import torch
 
 from zigbpe_tpu_torch import BasicTokenizer, train
 from zigbpe_tpu_torch.ops import core
+from zigbpe_tpu_torch.ops.kernels import encode as kencode
 from zigbpe_tpu_torch.ops.kernels import merge as kmerge
 
 REPO = Path(__file__).resolve().parents[1]
@@ -18,6 +19,7 @@ MODULES = [
     "zigbpe_tpu_torch", "zigbpe_tpu_torch.cli", "zigbpe_tpu_torch.train",
     "zigbpe_tpu_torch.models.basic_tokenizer", "zigbpe_tpu_torch.models.oracle",
     "zigbpe_tpu_torch.models.numpy_backend", "zigbpe_tpu_torch.ops.core",
+    "zigbpe_tpu_torch.ops.encode_batch", "zigbpe_tpu_torch.ops.kernels.encode",
     "zigbpe_tpu_torch.ops.kernels", "zigbpe_tpu_torch.ops.kernels._build",
     "zigbpe_tpu_torch.ops.kernels.merge", "zigbpe_tpu_torch.utils.serde",
     "zigbpe_tpu_torch.utils.profiling", "zigbpe_tpu_torch.utils.fileio",
@@ -49,7 +51,7 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     env = {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path / "none"),
            "PYTHONPATH": str(REPO)}
     code = (
-        "from zigbpe_tpu_torch.ops.kernels import _build, merge\n"
+        "from zigbpe_tpu_torch.ops.kernels import _build, encode, merge\n"
         "assert _build._libs == {}\n"
         "try:\n"
         "    _build.nvcc_path()\n"
@@ -92,3 +94,55 @@ def test_merge_pass_rejects_bad_shapes(n, table, match):
     tokens = torch.full((n,), -1, dtype=torch.int32)
     with pytest.raises(ValueError, match=match):
         kmerge.merge_pass_multi(tokens, torch.tensor(table, dtype=torch.int32))
+
+
+def _grouped(rows):
+    gt, gl = kencode.schedule_merges(rows, cap=4)
+    return torch.from_numpy(gt), torch.from_numpy(gl)
+
+
+def test_encode_on_a_non_cpu_tensor_never_runs_the_twin():
+    gt, gl = _grouped([[97, 98, 256]])
+    tokens = torch.full((2, 1024), -1, dtype=torch.int32, device="meta")
+    before = kencode.encode_rows_grouped.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kencode.encode_rows_grouped(tokens, gt.to("meta"), gl.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        kencode.encode_rows(tokens, [[97, 98, 256]])
+    assert kencode.encode_rows_grouped.launches == before
+
+
+@pytest.mark.parametrize("L,gshape,match", [
+    (1000, (1, 4, 3), "128"),
+    (896, (1, 4, 3), "8 <= R <= 256"),
+    (32896, (1, 4, 3), "8 <= R <= 256"),
+    (1024, (1, 4, 2), r"\[P, cap, 3\]"),
+    (1024, (4, 3), r"\[P, cap, 3\]"),
+    (1024, (1, 2000, 3), "capacity"),
+])
+def test_encode_rejects_bad_shapes(L, gshape, match):
+    tokens = torch.full((2, L), -1, dtype=torch.int32)
+    gtable = torch.full(gshape, -1, dtype=torch.int32)
+    glens = torch.zeros(gshape[0], dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        kencode.encode_rows_grouped(tokens, gtable, glens)
+
+
+def test_encode_rejects_mismatched_glens():
+    gt, _ = _grouped([[97, 98, 256]])
+    tokens = torch.full((2, 1024), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="glens"):
+        kencode.encode_rows_grouped(tokens, gt, torch.zeros(3, dtype=torch.int32))
+
+
+def test_train_and_load_merges_reset_the_grouped_table(tmp_path):
+    tok = BasicTokenizer([(104, 101, 256)], device="cpu")
+    assert tok.encode_batch([b"hello"]) == [[256, 108, 108, 111]]
+    assert tok._grouped_merges is not None
+    tok.train(b"lolo lolo", 257, backend="oracle")
+    assert tok._grouped_merges is None
+    assert tok.encode_batch([b"lolo"]) == [[256, 256]]
+    (tmp_path / "m.txt").write_text("104,101,256\n")
+    tok.load_merges(tmp_path / "m.txt")
+    assert tok._grouped_merges is None
+    assert tok.encode_batch([b"hello"]) == [[256, 108, 108, 111]]

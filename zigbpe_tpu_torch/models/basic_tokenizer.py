@@ -18,9 +18,12 @@ from __future__ import annotations
 import os
 from typing import Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import core
+from ..ops import encode_batch as eb
+from ..ops.kernels import encode as kenc
 from ..utils import serde
 from ..utils.profiling import TimeStats
 from . import oracle
@@ -54,6 +57,7 @@ class BasicTokenizer:
         self.device = core.resolve_device(device)
         self.time_stats = TimeStats()
         self._device_merges = None  # cached (M, 3) int32 tensor on device
+        self._grouped_merges = None  # cached (gtable, glens) tensors on device
 
     # ------------------------------------------------------------------ train
 
@@ -90,6 +94,7 @@ class BasicTokenizer:
         else:
             raise ValueError(f"unknown backend {backend!r}")
         self._device_merges = None
+        self._grouped_merges = None
         return self
 
     # ----------------------------------------------------------------- encode
@@ -112,13 +117,50 @@ class BasicTokenizer:
             raise ValueError(f"unknown backend {backend!r}")
         if not self.merges:
             return list(text)
+        tokens, _ = core.pad_tokens(text, _encode_capacity(max(len(text), 1)),
+                                    self.device)
+        out, length = core.encode_replay(tokens, self._merges_tensor())
+        return out[:length].tolist()
+
+    def encode_batch(self, docs, row_length: Optional[int] = None) -> List[List[int]]:
+        """Encode a batch of documents as padded rows on this tokenizer's
+        device — the serving-path API (BASELINE.json config 3). Each row is
+        independent; semantics per row are identical to :meth:`encode`.
+
+        Rows of 1024 to 32768 tokens (a multiple of 128) replay the
+        scheduled merge table in one launch of the encode kernel; other row
+        lengths take the plain per-merge batch replay. The choice is by
+        shape only."""
+        if not docs:
+            return []
+        docs = [d.encode("utf-8") if isinstance(d, str) else bytes(d) for d in docs]
+        if not self.merges:
+            return [list(d) for d in docs]
+        if row_length:
+            L = row_length
+        else:
+            # tight power-of-two capacity, floored at the kernel's 1024
+            # tokens only where the kernel then takes the rows
+            L = _encode_capacity(max((len(d) for d in docs), default=1))
+            if kenc.encode_kernel_supported(max(L, 1024)):
+                L = max(L, 1024)
+        tokens, _ = eb.pad_batch(docs, L, self.device)
+        if kenc.encode_kernel_supported(L):
+            if self._grouped_merges is None:
+                gt, gl = kenc.schedule_merges(np.asarray(self.merges, np.int32), cap=32)
+                self._grouped_merges = (torch.from_numpy(gt).to(self.device),
+                                        torch.from_numpy(gl).to(self.device))
+            out, lengths = kenc.encode_rows_grouped(tokens, *self._grouped_merges)
+        else:
+            out, lengths = eb.encode_batch(tokens, self._merges_tensor())
+        out = out.cpu()
+        return [out[i, :n].tolist() for i, n in enumerate(lengths.tolist())]
+
+    def _merges_tensor(self) -> torch.Tensor:
         if self._device_merges is None:
             self._device_merges = torch.tensor(self.merges, dtype=torch.int32,
                                                device=self.device)
-        tokens, _ = core.pad_tokens(text, _encode_capacity(max(len(text), 1)),
-                                    self.device)
-        out, length = core.encode_replay(tokens, self._device_merges)
-        return out[:length].tolist()
+        return self._device_merges
 
     # ----------------------------------------------------------------- decode
 
@@ -171,6 +213,7 @@ class BasicTokenizer:
         the current merge list."""
         self.merges = serde.load(path)
         self._device_merges = None
+        self._grouped_merges = None
         return self
 
     @classmethod

@@ -28,9 +28,8 @@ import functools
 
 import torch
 
-from . import LAYOUT, _build
+from . import LAYOUT, PAD, _build, compact_rows
 
-PAD = -1
 BIG = 2**31 - 1
 MAX_SLOTS = 4
 
@@ -83,10 +82,7 @@ def merge_pass_multi_reference(tokens: torch.Tensor, table: torch.Tensor):
     killed &= valid
     keep = valid & ~killed
 
-    dest = torch.where(keep, torch.cumsum(keep, 1) - 1, LAYOUT)
-    out = torch.full((R, LAYOUT + 1), PAD, dtype=t2.dtype, device=dev)
-    out.scatter_(1, dest, torch.where(keep, written, PAD))
-    t2.copy_(out[:, :LAYOUT])
+    t2.copy_(compact_rows(written, keep))
 
     rowkept = keep.sum(1)
     nonempty = torch.nonzero(rowpop > 0).flatten()
