@@ -7,7 +7,10 @@ Phases, each of which must pass:
 
 1. build   — compile the CUDA kernels of ``zigbpe_tpu_torch/csrc/`` (one
              nvcc per source, all at once, sm_90a) into
-             ``zigbpe_tpu_torch/_build/`` and print their ptxas lines;
+             ``zigbpe_tpu_torch/_build/`` and print the ptxas lines of the
+             production kernels (the merge kernel's mask-0 instantiation)
+             and the largest register count and any spill of the ablated
+             merge instantiations;
 2. kernel  — the merge kernel against its plain PyTorch twin (run on a CPU
              copy) at 1 tile, many tiles and 2^25 tokens: K = 1 with a != b,
              K = 1 with a == b and runs spanning many tiles, K = 4 groups
@@ -16,22 +19,32 @@ Phases, each of which must pass:
              hit counts / new length must be equal and the min_kept <= 1
              decision must agree. Then both are timed at 2^25 tokens with
              CUDA events;
-3. encode-kernel — the encode kernel against its twin (on a CPU copy) and
+3. probes  — the measurement probes' kernels against their twins (run on
+             the card): copy_blocks, copy_carry and copy_peek for int32 and
+             int16 at every block size of the floor probe, at 2^25 tokens of
+             seeded data with negatives and on zeros; every variant of
+             merge_pass_ablated at 1 tile, many tiles, 2^25 tokens and a run
+             of a spanning every tile, with an a != b and an a == b table
+             (tokens and hits / length equal, the min_kept <= 1 decision
+             agreeing). Then ``python -m zigbpe_tpu_torch.probes`` floor,
+             pipeline (both tables) and budget run at full size and print
+             their tables;
+4. encode-kernel — the encode kernel against its twin (on a CPU copy) and
              the oracle, at rows of 1024 and 32768 tokens: every case of
              tests/test_encode_kernel.py, 8 seeds of the adversarial fuzz of
              tests/test_encode_fuzz.py (rebuilt here), and one 32768-byte run
              of ``a`` under doubling merges;
-4. golden  — BasicTokenizer(device="cuda") trains the conformance corpus to
+5. golden  — BasicTokenizer(device="cuda") trains the conformance corpus to
              vocab 300 (exactly tests/data/merges.txt), encodes it on the
              card (128,451 tokens, equal to the CPU twin path) and decodes
              it back; ``python -m zigbpe_tpu_torch.cli demo`` round-trips the
              probe;
-5. scale   — the corpus tiled to 32 MiB, trained to vocab 512 on the card
+6. scale   — the corpus tiled to 32 MiB, trained to vocab 512 on the card
              and cross-checked against the native C++ trainer
              (zigbpe_tpu/native/fastio.cpp, built with g++ and called by
              path); the 32 MiB corpus encoded on the card equals the native
              encoder's ids;
-6. serving — BASELINE.json config 3: a 1024-merge table trained by the
+7. serving — BASELINE.json config 3: a 1024-merge table trained by the
              native trainer on the first 1 MiB, scheduled with
              schedule_merges(cap=32). BasicTokenizer(device="cuda")
              .encode_batch on the corpus cut into 101 documents (L = 16384)
@@ -43,9 +56,10 @@ Phases, each of which must pass:
              over the batch equal the twin (run on the card) and 64 rows the
              native encoder. Times the kernel and the twin on 1024 rows, the
              kernel on the whole 1 GiB and encode_batch of the 1024 rows;
-7. count   — each kernel's launch counter, zeroed just before its path
-             (merge: phases 4-5; encode: the two encode_batch calls of
-             phase 6), is > 0 just after it.
+8. count   — each kernel's launch counter, zeroed just before its path
+             (the probe kernels: the three probes of phase 3; merge: phases
+             5-6; encode: the two encode_batch calls of phase 7), is > 0
+             just after it.
 
 Prints each phase's result and wall time, then a JSON line of kernels, the
 card's name and power limit, and as the last line
@@ -60,6 +74,8 @@ import hashlib
 import json
 import os
 import pathlib
+import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -67,6 +83,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from zigbpe_tpu_torch.probes import time_runs
+from zigbpe_tpu_torch.probes.budget import tiled_corpus
 
 ROOT = pathlib.Path(__file__).resolve().parent
 CORPUS = ROOT / "tests" / "data" / "taylorswift.txt"
@@ -81,7 +100,7 @@ SERVE_ROW = 32768       # ... as rows of 32768 tokens ...
 SERVE_MERGES = 1024     # ... under a frozen 1K-merge table
 SERVE_TABLE_BYTES = 1 << 20  # trained on the first 1 MiB, as bench.py does
 SERVE_DOCS = 1024       # config 3's rows sent through encode_batch
-KERNELS = ("merge", "encode")
+KERNELS = ("merge", "encode", "copy")
 
 
 class PhaseError(RuntimeError):
@@ -103,11 +122,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     return out.splitlines()[0]
-
-
-def tiled_corpus(total: int) -> bytes:
-    seed = CORPUS.read_bytes()
-    return (seed * (total // len(seed) + 1))[:total]
 
 
 def padded(data: bytes, cap: int) -> np.ndarray:
@@ -190,11 +204,24 @@ def phase_build():
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         built = list(pool.map(timed, KERNELS))
     for name, (path, secs) in zip(KERNELS, built):
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        ablated = []  # (registers, spill bytes, kernel)
+        for entry in path.with_suffix(".log").read_text().split("Compiling entry function")[1:]:
+            fn = re.search(r"[a-z_]+_kernel(I\w*?EE)?", entry)[0]
+            # merge.cu's kernels are templates on an ablation mask: the
+            # production pass is mask 0 (ILj0E), the others are the probes'
+            if "ILj" in fn and "ILj0E" not in fn:
+                ablated.append((int(re.search(r"Used (\d+) registers", entry)[1]),
+                                int(re.search(r"(\d+) bytes spill stores", entry)[1]), fn))
+            else:
+                log(f"  ptxas {name} {fn}: " + "; ".join(
+                    line.strip() for line in entry.splitlines()
+                    if "registers" in line or "spill" in line))
+        if ablated:
+            spills = ", ".join(f"{fn} {b} B" for _, b, fn in ablated if b) or "none"
+            log(f"  ptxas {name}: {len(ablated)} ablated instantiations, at most "
+                f"{max(r for r, _, _ in ablated)} registers, spill stores: {spills}")
         log(f"[build] ok: {path.relative_to(ROOT)} in {secs:.2f} s")
-    log(f"[build] both kernels built in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] all {len(KERNELS)} kernels built in {time.perf_counter() - t0:.2f} s")
     return {name: secs for name, (_, secs) in zip(KERNELS, built)}
 
 
@@ -254,22 +281,12 @@ def phase_kernel(torch, group, group2):
     return worst
 
 
-def time_pass(torch, fn, src, table, reps):
-    """Mean ms of fn(tokens, table) on a fresh copy of ``src`` each rep,
-    CUDA events around the pass only."""
+def time_pass(fn, src, table, reps):
+    """Mean ms of fn(tokens, table) over ``reps`` runs after a warm-up, on a
+    fresh copy of ``src`` each run, CUDA events around the pass only."""
     work = src.clone()
-    fn(work, table)  # warm-up
-    times = []
-    for _ in range(reps):
-        work.copy_(src)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn(work, table)
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return sum(times) / len(times)
+    return statistics.fmean(time_runs(lambda: fn(work, table), src.device, reps,
+                                      setup=lambda: work.copy_(src)))
 
 
 def phase_timing(torch, group):
@@ -280,12 +297,110 @@ def phase_timing(torch, group):
     out = {}
     for label, table in (("K=4", group), ("K=1 a==b", [[aa, aa, 256]])):
         t = torch.tensor(table, dtype=torch.int32, device="cuda")
-        ms = time_pass(torch, km.merge_pass_multi, src, t, 20)
-        plain = time_pass(torch, km.merge_pass_multi_reference, src, t, 5)
+        ms = time_pass(km.merge_pass_multi, src, t, 20)
+        plain = time_pass(km.merge_pass_multi_reference, src, t, 5)
         log(f"[timing] merge pass at 2^25 tokens, {label}: kernel {ms:.4f} ms, "
             f"plain PyTorch twin {plain:.4f} ms (CUDA events, mean)")
         out[label] = (ms, plain)
     return out
+
+
+COPY_KERNELS = ("copy_blocks", "copy_carry", "copy_peek")
+PROBE_KERNELS = ("merge_pass_ablated", *COPY_KERNELS)
+PROBE_SOURCES = (  # (kernel, source, the TPU kernel's pallas_call it replaces)
+    ("merge_pass_ablated", "zigbpe_tpu_torch/csrc/merge.cu",
+     "scripts/probe_merge_budget.py:287"),
+    ("copy_blocks", "zigbpe_tpu_torch/csrc/copy.cu",
+     "scripts/probe_floor.py:37; scripts/probe_pipeline.py:39, :168"),
+    ("copy_carry", "zigbpe_tpu_torch/csrc/copy.cu", "scripts/probe_pipeline.py:65"),
+    ("copy_peek", "zigbpe_tpu_torch/csrc/copy.cu", "scripts/probe_pipeline.py:98"),
+)
+
+
+def phase_probes(torch, group, card):
+    """The probe kernels against their twins (on the card), then the three
+    probes at full size with every probe kernel's count from zero. Returns
+    {kernel: {launches, max_abs_err, ms, plain_ms}}."""
+    from zigbpe_tpu_torch.ops.kernels import copy as kc, merge as km
+    from zigbpe_tpu_torch.probes import budget, floor, pipeline
+
+    t0 = time.perf_counter()
+    worst = dict.fromkeys(PROBE_KERNELS, 0)
+    rows = (1 << 25) // 128
+    rng = np.random.default_rng(5)
+    for np_dtype in (np.int32, np.int16):
+        host = rng.integers(-1000, 30000, (rows, 128)).astype(np_dtype)
+        if np_dtype == np.int32:  # look-ahead tokens that make the sum wrap
+            host[::8, 0] = rng.integers(1 << 30, (1 << 31) - 1, rows // 8)
+        data = torch.from_numpy(host).cuda()
+        for label, x in (("seeded", data), ("zeros", torch.zeros_like(data))):
+            for R in floor.BLOCK_ROWS:
+                for name in COPY_KERNELS:
+                    got = getattr(kc, name)(x, R)
+                    want = getattr(kc, f"{name}_reference")(x, R)
+                    if name == "copy_blocks":
+                        got, want = (got,), (want,)
+                    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+                    worst[name] = max(worst[name], err)
+                    require(err == 0 and got[0].dtype == x.dtype,
+                            f"{name} != twin: {x.dtype} R={R} {label}, max_abs_err {err}")
+        log(f"  copy kernels == twins: {data.dtype}, R in {floor.BLOCK_ROWS}, seeded and zeros")
+    del data, x, got, want
+
+    aa = commonest_repeat()
+    cases = [(f"cap={cap}", padded(tiled_corpus(cap - int(rng.integers(1, 300))), cap))
+             for cap in (4096, 128 * 1000, 1 << 25)]
+    cases.append(("a-run spanning tiles", padded(b"a" * ((1 << 20) - 3) + b"xy", 1 << 20)))
+    for label, arr in cases:
+        src = torch.from_numpy(arr).cuda()
+        for table in ([group[0]], [(aa, aa, 256)]):
+            t = torch.tensor(table, dtype=torch.int32, device="cuda")
+            for variant in km.VARIANTS:
+                gtok, gst = km.merge_pass_ablated(src.clone(), t, variant)
+                ctok, cst = km.merge_pass_ablated_reference(src.clone(), t, variant)
+                err = max(int((gtok - ctok).abs().max()),
+                          int((gst[:2].long() - cst[:2].long()).abs().max()))
+                worst["merge_pass_ablated"] = max(worst["merge_pass_ablated"], err)
+                same = err == 0 and bool((gst[2] <= 1) == (cst[2] <= 1))
+                require(same, f"merge_pass_ablated {variant} != twin on {label} {table}: "
+                        f"gpu {gst.tolist()} twin {cst.tolist()}")
+        log(f"  merge_pass_ablated == twin, every variant: {label} n={arr.size} "
+            f"(tables {group[0]} and {(aa, aa, 256)})")
+    log(f"[probes] ok: probe kernels == twins, max_abs_err {worst} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # kernel against twin at the probes' shapes, both on the card
+    x = torch.zeros((rows, 128), dtype=torch.int32, device="cuda")
+    times = {}
+    for name in COPY_KERNELS:  # 20 calls back to back per span, so that
+        # the span holds device time and not the host's launch gap
+        fn, twin = getattr(kc, name), getattr(kc, f"{name}_reference")
+        times[name] = tuple(
+            statistics.fmean(time_runs(lambda f=f: [f(x, 256) for _ in range(20)],
+                                       x.device, 5)) / 20
+            for f in (fn, twin))
+    src = torch.from_numpy(padded(tiled_corpus((1 << 25) - 100), 1 << 25)).cuda()
+    t = torch.tensor([group[0]], dtype=torch.int32, device="cuda")
+    times["merge_pass_ablated"] = (
+        time_pass(lambda w, tb: km.merge_pass_ablated(w, tb, "full"), src, t, 20),
+        time_pass(lambda w, tb: km.merge_pass_ablated_reference(w, tb, "full"), src, t, 5))
+    for name, (ms, plain) in times.items():
+        shape = f"full pass of {group[0]}" if name == "merge_pass_ablated" else "R = 256"
+        log(f"[probes] {name} at 2^25 int32 tokens ({shape}): kernel {ms:.4f} ms, "
+            f"plain PyTorch twin {plain:.4f} ms (CUDA events, mean per call); {card}")
+    del x, src
+
+    # the probes' own path, each counter from zero
+    for name in PROBE_KERNELS:
+        getattr(km if name == "merge_pass_ablated" else kc, name).launches = 0
+    floor.run("cuda")
+    pipeline.run("cuda")
+    pipeline.run("cuda", loop=True)
+    budget.run("cuda")
+    launches = {name: getattr(km if name == "merge_pass_ablated" else kc, name).launches
+                for name in PROBE_KERNELS}
+    return {name: {"launches": launches[name], "max_abs_err": worst[name],
+                   "ms": times[name][0], "plain_ms": times[name][1]} for name in PROBE_KERNELS}
 
 
 def phase_golden(torch):
@@ -488,20 +603,6 @@ def phase_encode_kernel(torch):
     return worst
 
 
-def time_call(torch, fn, reps):
-    """Mean ms of fn() over ``reps`` runs, CUDA events around each run."""
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return sum(times) / len(times), times
-
-
 def phase_serving(torch, card, build_s):
     from zigbpe_tpu_torch import BasicTokenizer
     from zigbpe_tpu_torch.ops import core
@@ -617,10 +718,10 @@ def phase_serving(torch, card, build_s):
     del out, lens
 
     sub = rows[:1024]
-    ms, ms_runs = time_call(torch, lambda: ke.encode_rows_grouped(sub, gt, gl), 5)
-    plain, plain_runs = time_call(
-        torch, lambda: ke.encode_rows_grouped_reference(sub, gt, gl), 2)
-    full, full_runs = time_call(torch, lambda: ke.encode_rows_grouped(rows, gt, gl), 3)
+    ms_runs = time_runs(lambda: ke.encode_rows_grouped(sub, gt, gl), sub.device, 5)
+    plain_runs = time_runs(lambda: ke.encode_rows_grouped_reference(sub, gt, gl), sub.device, 2)
+    full_runs = time_runs(lambda: ke.encode_rows_grouped(rows, gt, gl), rows.device, 3)
+    ms, plain, full = map(statistics.fmean, (ms_runs, plain_runs, full_runs))
     mbps = SERVE_BYTES / 1e6 / (full / 1e3)
     smem = ke._library().zbpe_encode_smem_bytes(SERVE_ROW, P, 32)
     log(f"[serving] encode kernel, 1024 rows x {SERVE_ROW} tokens, P={P}: kernel "
@@ -649,7 +750,6 @@ def main() -> int:
         return 2
     card = card_line()
     log(card)
-    sys.path.insert(0, str(ROOT))
     from zigbpe_tpu_torch.ops.kernels import encode as ke, merge as km
 
     t_all = time.perf_counter()
@@ -661,6 +761,7 @@ def main() -> int:
     log(f"  real groups from the golden training: {group} then {group2}")
     max_err = run_phase("kernel", phase_kernel, torch, group, group2)
     timing = run_phase("timing", phase_timing, torch, group)
+    probes = run_phase("probes", phase_probes, torch, group, card)
     enc_err = run_phase("encode-kernel", phase_encode_kernel, torch)
 
     km.merge_pass_multi.launches = 0
@@ -670,8 +771,11 @@ def main() -> int:
     serving = run_phase("serving", phase_serving, torch, card, build_s["encode"])
     require(launches > 0, "the merge kernel never launched on the train/encode path")
     require(serving["launches"] > 0, "the encode kernel never launched on the serving path")
+    for name, row in probes.items():
+        require(row["launches"] > 0, f"{name} never launched on the probes' path")
     log(f"[count] ok: merge kernel launched {launches} times on the train/encode path, "
-        f"encode kernel {serving['launches']} times on the encode_batch path")
+        f"encode kernel {serving['launches']} times on the encode_batch path; on the "
+        f"probes' path " + ", ".join(f"{n} {r['launches']}" for n, r in probes.items()))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     ms, plain = timing["K=4"]
@@ -688,6 +792,9 @@ def main() -> int:
         "max_abs_err": max(enc_err, serving["max_abs_err"]),
         "ms": serving["ms"], "plain_ms": serving["plain_ms"],
     }]
+    for name, source, replaces in PROBE_SOURCES:
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, **probes[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 without nvcc, and a request for CUDA on a machine without a card raises
 instead of running on the CPU."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -11,6 +12,7 @@ import torch
 
 from zigbpe_tpu_torch import BasicTokenizer, train
 from zigbpe_tpu_torch.ops import core
+from zigbpe_tpu_torch.ops.kernels import copy as kcopy
 from zigbpe_tpu_torch.ops.kernels import encode as kencode
 from zigbpe_tpu_torch.ops.kernels import merge as kmerge
 
@@ -23,7 +25,10 @@ MODULES = [
     "zigbpe_tpu_torch.ops.kernels", "zigbpe_tpu_torch.ops.kernels._build",
     "zigbpe_tpu_torch.ops.kernels.merge", "zigbpe_tpu_torch.utils.serde",
     "zigbpe_tpu_torch.utils.profiling", "zigbpe_tpu_torch.utils.fileio",
-    "zigbpe_tpu_torch.utils.state",
+    "zigbpe_tpu_torch.utils.state", "zigbpe_tpu_torch.ops.kernels.copy",
+    "zigbpe_tpu_torch.probes", "zigbpe_tpu_torch.probes.__main__",
+    "zigbpe_tpu_torch.probes.budget", "zigbpe_tpu_torch.probes.floor",
+    "zigbpe_tpu_torch.probes.pipeline",
 ]
 
 
@@ -51,7 +56,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     env = {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path / "none"),
            "PYTHONPATH": str(REPO)}
     code = (
-        "from zigbpe_tpu_torch.ops.kernels import _build, encode, merge\n"
+        "from zigbpe_tpu_torch.ops.kernels import _build, copy, encode, merge\n"
+        "import zigbpe_tpu_torch.probes.__main__\n"
         "assert _build._libs == {}\n"
         "try:\n"
         "    _build.nvcc_path()\n"
@@ -146,3 +152,81 @@ def test_train_and_load_merges_reset_the_grouped_table(tmp_path):
     tok.load_merges(tmp_path / "m.txt")
     assert tok._grouped_merges is None
     assert tok.encode_batch([b"hello"]) == [[256, 108, 108, 111]]
+
+
+def _launches(wrapper):
+    return getattr(kcopy, wrapper, getattr(kmerge, wrapper, None)).launches
+
+
+@pytest.mark.parametrize("wrapper", ["merge_pass_ablated", "copy_blocks", "copy_carry",
+                                     "copy_peek"])
+def test_probe_kernels_on_a_non_cpu_tensor_never_run_the_twin(wrapper):
+    before = _launches(wrapper)
+    with pytest.raises(ValueError, match="CUDA"):
+        if wrapper == "merge_pass_ablated":
+            kmerge.merge_pass_ablated(
+                torch.full((256,), -1, dtype=torch.int32, device="meta"),
+                torch.tensor([[97, 98, 256]], dtype=torch.int32, device="meta"), "copy")
+        else:
+            getattr(kcopy, wrapper)(torch.zeros((16, 128), dtype=torch.int32,
+                                                device="meta"), 8)
+    assert _launches(wrapper) == before
+
+
+@pytest.mark.parametrize("variant,n,match", [
+    ("nofull", 256, "unknown variant"),
+    ("FULL", 256, "unknown variant"),
+    ("copy", 200, "multiple of 128"),
+])
+def test_merge_pass_ablated_rejects_bad_arguments(variant, n, match):
+    tokens = torch.full((n,), -1, dtype=torch.int32)
+    table = torch.tensor([[97, 98, 256]], dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        kmerge.merge_pass_ablated(tokens, table, variant)
+
+
+@pytest.mark.parametrize("wrapper", ["copy_blocks", "copy_carry", "copy_peek"])
+@pytest.mark.parametrize("shape,dtype,R,match", [
+    ((16, 128), torch.int64, 8, "int32 or int16"),
+    ((16, 128), torch.uint8, 8, "int32 or int16"),
+    ((16, 64), torch.int32, 8, r"\(rows, 128\)"),
+    ((2048,), torch.int32, 8, r"\(rows, 128\)"),
+    ((16, 128), torch.int32, 3, "multiple of rows_per_block"),
+    ((16, 128), torch.int16, 0, "multiple of rows_per_block"),
+    ((0, 128), torch.int32, 8, "multiple of rows_per_block"),
+])
+def test_copy_kernels_reject_bad_arguments(wrapper, shape, dtype, R, match):
+    with pytest.raises(ValueError, match=match):
+        getattr(kcopy, wrapper)(torch.zeros(shape, dtype=dtype), R)
+
+
+def test_copy_peek_needs_eight_rows():
+    with pytest.raises(ValueError, match="8 rows"):
+        kcopy.copy_peek(torch.zeros((4, 128), dtype=torch.int32), 4)
+
+
+@pytest.mark.parametrize("rows,R", [(24, 12), (12, 4), (20, 20)])
+def test_copy_peek_needs_eight_row_blocks(rows, R):
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kcopy.copy_peek(torch.zeros((rows, 128), dtype=torch.int32), R)
+
+
+def test_ablation_masks_match_the_kernel_source():
+    """ops/kernels/merge.py's ABL_* bits are csrc/merge.cu's, and every
+    variant's mask is one the kernel's entry dispatches."""
+    src = (REPO / "zigbpe_tpu_torch" / "csrc" / "merge.cu").read_text()
+    cu = {m[0]: int(m[1]) for m in re.findall(r"constexpr unsigned (ABL_\w+) = (\d+);", src)}
+    assert cu == {k: v for k, v in vars(kmerge).items() if k.startswith("ABL_")}
+    cases = re.findall(r"case ([A-Z_| 0-9]+):", src)
+    masks = {sum(cu[t.strip()] if t.strip() in cu else int(t) for t in c.split("|"))
+             for c in cases}
+    assert masks == set(kmerge.VARIANTS.values())
+
+
+def test_probe_cli_refuses_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from zigbpe_tpu_torch.probes import __main__ as probes_main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        probes_main.main(["floor"])

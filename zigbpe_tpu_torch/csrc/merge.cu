@@ -45,6 +45,37 @@
 // The kernels allocate nothing: the caller passes a work array of
 // zbpe_merge_work_ints(n) int32s and a stats array of K + 2 int32s. The
 // launch runs on the caller's stream and returns cudaGetLastError().
+//
+// Ablated passes. The kernels take a compile-time bit mask ABL of pieces to
+// switch off; the production pass is mask 0, and zbpe_merge_pass_ablated
+// runs the other masks. They replace the ablated copies of the Pallas
+// kernel in scripts/probe_merge_budget.py (make_variant): each is this
+// kernel minus one piece, so the difference of two pass times is that
+// piece's cost. Variants and what each one leaves in tokens and stats:
+//   full      (0)            nothing off; equal to the production pass.
+//   nofast    ABL_NOFAST     every row is written, not only changed rows;
+//                            tokens and stats equal full's.
+//   noparity  ABL_NOPARITY   no slot-0 rank parity and no whole-tile
+//                            summary read for a == b: every candidate
+//                            hits; equal to full when no slot has a == b.
+//   nominkept ABL_NOMINKEPT  no kept-row minimum upkeep and no min pass in
+//                            the reduce: tokens, hits, length = full's,
+//                            min_kept = BIG.
+//   noedgek   ABL_NOEDGEK    no head kill across rows and tiles: a hit
+//                            kills its partner only within its row.
+//   nocompact ABL_NOCOMPACT  no warp scan and no compaction: a hit's token
+//                            becomes x in place and its partner stays in
+//                            the array; stats (hits, kept count, min_kept)
+//                            equal full's.
+//   nokills   ABL_NOKILLS | ABL_NOCOMPACT | ABL_NOEDGEK | ABL_NOMINKEPT
+//                            no partner is killed: hits written in place,
+//                            length = input length, min_kept = BIG.
+//   nostore   ABL_NOSTORE    no global store of tokens: tokens unchanged,
+//                            stats equal full's.
+//   copy      ABL_COPY       the apply launch alone loads each tile into
+//                            shared memory and stores every row back: no
+//                            summary, scan, hits or reduce; tokens
+//                            unchanged, stats zero.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,6 +92,16 @@ constexpr int MAXK = 4;
 constexpr int PAD = -1;
 constexpr int BIG = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
+
+// Ablation bits (see the header); ops/kernels/merge.py mirrors them.
+constexpr unsigned ABL_NOFAST = 1;
+constexpr unsigned ABL_NOPARITY = 2;
+constexpr unsigned ABL_NOMINKEPT = 4;
+constexpr unsigned ABL_NOEDGEK = 8;
+constexpr unsigned ABL_NOCOMPACT = 16;
+constexpr unsigned ABL_NOKILLS = 32;
+constexpr unsigned ABL_NOSTORE = 64;
+constexpr unsigned ABL_COPY = 128;
 
 // Fields of the work array, G int32s each (G = number of tiles).
 enum Field {
@@ -93,8 +134,9 @@ __device__ __forceinline__ Slots load_slots(const int* __restrict__ table, int K
   return s;
 }
 
+template <unsigned ABL>
 __device__ __forceinline__ bool parity_mode(const Slots& s) {
-  return s.a[0] == s.b[0] && s.a[0] >= 0;
+  return !(ABL & ABL_NOPARITY) && s.a[0] == s.b[0] && s.a[0] >= 0;
 }
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -179,13 +221,15 @@ __device__ __forceinline__ int4 load_row4(const int* __restrict__ tok, long long
 
 // ---------------------------------------------------------------- launch 1
 
+// ABL here is the caller's mask & ABL_NOPARITY: no other piece changes it.
+template <unsigned ABL>
 __global__ void __launch_bounds__(THREADS)
 summary_kernel(const int* __restrict__ tok, const int* __restrict__ table, int K,
                long long nrows, int G, int* __restrict__ work) {
   const int g = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Slots s = load_slots(table, K);
-  const bool parity = parity_mode(s);
+  const bool parity = parity_mode<ABL>(s);
   const long long row0 = (long long)g * TILE_ROWS;
   const bool has_next = g + 1 < G;
   const int peek = has_next ? tok[(row0 + TILE_ROWS) * LANES] : PAD;
@@ -314,10 +358,12 @@ __device__ int block_excl_scan(int v, int identity, Op op, int* s, int& total) {
   return excl;
 }
 
+// ABL here is the caller's mask & ABL_NOPARITY.
+template <unsigned ABL>
 __global__ void __launch_bounds__(SCAN_THREADS)
 scan_kernel(const int* __restrict__ table, int K, int G, int* __restrict__ work) {
   const Slots s = load_slots(table, K);
-  if (!parity_mode(s)) {
+  if (!parity_mode<ABL>(s)) {
     for (int g = threadIdx.x; g < G; g += blockDim.x)
       work[F_KILL * G + g] = g > 0 && (work[F_EDGE * G + g - 1] & 3) != 0;
     return;
@@ -350,13 +396,27 @@ scan_kernel(const int* __restrict__ table, int K, int G, int* __restrict__ work)
 
 // ---------------------------------------------------------------- launch 3
 
-__global__ void __launch_bounds__(THREADS)
+// The production pass compiles to 64 registers a thread, which lets 4 blocks
+// of 256 threads share an SM. The bound holds every ablated instantiation to
+// that occupancy too: left free, some took 73-86 registers and ran 2-3
+// blocks per SM, so their times measured register allocation, not the work
+// they leave out.
+constexpr int APPLY_BLOCKS_PER_SM = 4;
+
+template <unsigned ABL>
+__global__ void __launch_bounds__(THREADS, APPLY_BLOCKS_PER_SM)
 apply_kernel(int* __restrict__ tok, const int* __restrict__ table, int K,
              long long nrows, int G, int* __restrict__ work) {
+  constexpr bool kFast = !(ABL & ABL_NOFAST);
+  constexpr bool kMinKept = !(ABL & ABL_NOMINKEPT);
+  constexpr bool kEdgeKill = !(ABL & ABL_NOEDGEK);
+  constexpr bool kCompact = !(ABL & ABL_NOCOMPACT);
+  constexpr bool kKills = !(ABL & ABL_NOKILLS);
+  constexpr bool kStore = !(ABL & ABL_NOSTORE);
   const int g = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Slots s = load_slots(table, K);
-  const bool parity = parity_mode(s);
+  const bool parity = parity_mode<ABL>(s);
   const long long row0 = (long long)g * TILE_ROWS;
 
   __shared__ int4 s_tile4[TILE_ROWS * 32];
@@ -367,6 +427,12 @@ apply_kernel(int* __restrict__ tok, const int* __restrict__ table, int K,
 
   for (int idx = threadIdx.x; idx < TILE_ROWS * 32; idx += THREADS)
     s_tile4[idx] = load_row4(tok, row0 + idx / 32, nrows, idx % 32);
+  if constexpr ((ABL & ABL_COPY) != 0) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < TILE_ROWS * 32; idx += THREADS)
+      if (row0 + idx / 32 < nrows) reinterpret_cast<int4*>(tok)[row0 * 32 + idx] = s_tile4[idx];
+    return;
+  }
   if (threadIdx.x == 0) {
     s_kept = 0;
     s_mabl = BIG;
@@ -377,7 +443,7 @@ apply_kernel(int* __restrict__ tok, const int* __restrict__ table, int K,
   // the next tile may already be rewritten: its head comes from the
   // snapshot the summary launch took
   const int peek = g + 1 < G ? work[F_HEAD * G + g + 1] : PAD;
-  const int kill_in = work[F_KILL * G + g];
+  const int kill_in = kEdgeKill ? work[F_KILL * G + g] : 0;
   __syncthreads();
 
   Quad v[ROWS_PER_WARP];
@@ -404,8 +470,10 @@ apply_kernel(int* __restrict__ tok, const int* __restrict__ table, int K,
     const int pop = s_pop[lane];
     const int pre = warp_incl_sum(pop, lane) - pop;
     s_pre[lane] = pre;
-    const unsigned ne = __ballot_sync(FULL, pop > 0);
-    if (lane == 0) s_lastne = ne ? 31 - __clz(ne) : -1;
+    if constexpr (kMinKept) {
+      const unsigned ne = __ballot_sync(FULL, pop > 0);
+      if (lane == 0) s_lastne = ne ? 31 - __clz(ne) : -1;
+    }
     if (parity) {
       const int rank = work[F_RANK * G + g];
       const int ncin = work[F_NCIN * G + g];
@@ -449,8 +517,10 @@ apply_kernel(int* __restrict__ tok, const int* __restrict__ table, int K,
     }
     hit[i] = h0 | cand[i][1] | cand[i][2] | cand[i][3];
     cand[i][0] = h0;  // from here on cand[i][m] are the hits of slot m
-    const bool eh = __any_sync(FULL, (hit[i] & v[i].last) != 0);
-    if (lane == 0) s_ehit[r] = eh;
+    if constexpr (kEdgeKill) {
+      const bool eh = __any_sync(FULL, (hit[i] & v[i].last) != 0);
+      if (lane == 0) s_ehit[r] = eh;
+    }
 #pragma unroll
     for (int m = 0; m < MAXK; ++m) {
       const int n = warp_sum(__popc(cand[i][m]));
@@ -459,40 +529,62 @@ apply_kernel(int* __restrict__ tok, const int* __restrict__ table, int K,
   }
   __syncthreads();
 
-  const int lastne = s_lastne;
+  const int lastne = kMinKept ? s_lastne : -1;
 #pragma unroll
   for (int i = 0; i < ROWS_PER_WARP; ++i) {
     const int r = warp * ROWS_PER_WARP + i;
-    const int prev_edge = r == 0 ? kill_in : s_ehit[r - 1];
-    const unsigned left = __shfl_up_sync(FULL, hit[i], 1);
-    const bool head_kill = lane == 0 ? prev_edge != 0 : ((left >> 3) & 1u);
-    const unsigned killed = ((hit[i] << 1) | (unsigned)head_kill) & v[i].valid & 0xfu;
+    unsigned killed = 0;
+    if constexpr (kKills) {
+      const int prev_edge = kEdgeKill ? (r == 0 ? kill_in : s_ehit[r - 1]) : 0;
+      const unsigned left = __shfl_up_sync(FULL, hit[i], 1);
+      const bool head_kill = lane == 0 ? prev_edge != 0 : ((left >> 3) & 1u);
+      killed = ((hit[i] << 1) | (unsigned)head_kill) & v[i].valid & 0xfu;
+    }
     const unsigned keep = v[i].valid & ~killed;
     const int kc = __popc(keep);
-    const int incl = warp_incl_sum(kc, lane);
-    const int total = __shfl_sync(FULL, incl, 31);
-    if (__any_sync(FULL, (hit[i] | killed) != 0)) {
-      int p = incl - kc;
+    int incl = 0, total;
+    if constexpr (kCompact) {
+      incl = warp_incl_sum(kc, lane);
+      total = __shfl_sync(FULL, incl, 31);
+    } else {
+      total = warp_sum(kc);
+    }
+    if (!kFast || __any_sync(FULL, (hit[i] | killed) != 0)) {
+      if constexpr (kCompact) {
+        int p = incl - kc;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if ((keep >> q) & 1u) {
-          int val = v[i].t[q];
+        for (int q = 0; q < 4; ++q) {
+          if ((keep >> q) & 1u) {
+            int val = v[i].t[q];
+#pragma unroll
+            for (int m = 0; m < MAXK; ++m)
+              if ((cand[i][m] >> q) & 1u) val = s.x[m];
+            s_tile[r * LANES + p++] = val;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (4 * lane + q >= total) s_tile[r * LANES + 4 * lane + q] = PAD;
+        __syncwarp();
+        if (kStore && row0 + r < nrows)
+          reinterpret_cast<int4*>(tok)[(row0 + r) * 32 + lane] = s_tile4[r * 32 + lane];
+      } else {
+        // hits become x where they stand; partners stay
+        int o[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          o[q] = v[i].t[q];
 #pragma unroll
           for (int m = 0; m < MAXK; ++m)
-            if ((cand[i][m] >> q) & 1u) val = s.x[m];
-          s_tile[r * LANES + p++] = val;
+            if ((cand[i][m] >> q) & 1u) o[q] = s.x[m];
         }
+        if (kStore && row0 + r < nrows)
+          reinterpret_cast<int4*>(tok)[(row0 + r) * 32 + lane] = make_int4(o[0], o[1], o[2], o[3]);
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (4 * lane + q >= total) s_tile[r * LANES + 4 * lane + q] = PAD;
-      __syncwarp();
-      if (row0 + r < nrows)
-        reinterpret_cast<int4*>(tok)[(row0 + r) * 32 + lane] = s_tile4[r * 32 + lane];
     }
     if (lane == 0) {
       atomicAdd(&s_kept, total);
-      if (s_pop[r] > 0) {
+      if (kMinKept && s_pop[r] > 0) {
         if (r == lastne) s_lastkept = total;
         else atomicMin(&s_mabl, total);
       }
@@ -501,8 +593,10 @@ apply_kernel(int* __restrict__ tok, const int* __restrict__ table, int K,
   __syncthreads();
   if (threadIdx.x == 0) {
     work[F_KEPT * G + g] = s_kept;
-    work[F_MABL * G + g] = s_mabl;
-    work[F_LASTKEPT * G + g] = s_lastkept;
+    if constexpr (kMinKept) {
+      work[F_MABL * G + g] = s_mabl;
+      work[F_LASTKEPT * G + g] = s_lastkept;
+    }
 #pragma unroll
     for (int m = 0; m < MAXK; ++m) work[(F_HITS + m) * G + g] = s_hits[m];
   }
@@ -510,8 +604,11 @@ apply_kernel(int* __restrict__ tok, const int* __restrict__ table, int K,
 
 // ---------------------------------------------------------------- launch 4
 
+// ABL here is the caller's mask & ABL_NOMINKEPT.
+template <unsigned ABL>
 __global__ void __launch_bounds__(SCAN_THREADS)
 reduce_kernel(int K, int G, const int* __restrict__ work, int* __restrict__ stats) {
+  constexpr bool kMinKept = !(ABL & ABL_NOMINKEPT);
   __shared__ int s_sum[MAXK + 1], s_glast, s_min;
   if (threadIdx.x == 0) {
     for (int m = 0; m <= MAXK; ++m) s_sum[m] = 0;
@@ -525,24 +622,28 @@ reduce_kernel(int K, int G, const int* __restrict__ work, int* __restrict__ stat
 #pragma unroll
     for (int m = 0; m < MAXK; ++m) sum[m] += work[(F_HITS + m) * G + g];
     sum[MAXK] += work[F_KEPT * G + g];
-    if (work[F_LASTKEPT * G + g] >= 0) glast = g;
-    mn = min(mn, work[F_MABL * G + g]);
+    if constexpr (kMinKept) {
+      if (work[F_LASTKEPT * G + g] >= 0) glast = g;
+      mn = min(mn, work[F_MABL * G + g]);
+    }
   }
 #pragma unroll
   for (int m = 0; m <= MAXK; ++m) {
     const int t = warp_sum(sum[m]);
     if ((threadIdx.x & 31) == 0) atomicAdd(&s_sum[m], t);
   }
-  atomicMax(&s_glast, glast);
+  if constexpr (kMinKept) atomicMax(&s_glast, glast);
   __syncthreads();
-  // the last non-empty row of every non-empty tile but the stream's last
-  // one is interior
-  const int gl = s_glast;
-  for (int g = threadIdx.x; g < gl; g += blockDim.x) {
-    const int lk = work[F_LASTKEPT * G + g];
-    if (lk >= 0) mn = min(mn, lk);
+  if constexpr (kMinKept) {
+    // the last non-empty row of every non-empty tile but the stream's last
+    // one is interior
+    const int gl = s_glast;
+    for (int g = threadIdx.x; g < gl; g += blockDim.x) {
+      const int lk = work[F_LASTKEPT * G + g];
+      if (lk >= 0) mn = min(mn, lk);
+    }
+    atomicMin(&s_min, mn);
   }
-  atomicMin(&s_min, mn);
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int m = 0; m < K; ++m) stats[m] = s_sum[m];
@@ -554,6 +655,29 @@ reduce_kernel(int K, int G, const int* __restrict__ work, int* __restrict__ stat
 inline int num_tiles(long long n) {
   const long long nrows = n / LANES;
   return (int)((nrows + TILE_ROWS - 1) / TILE_ROWS);
+}
+
+inline bool bad_args(long long n, int K) {
+  return n <= 0 || n % LANES != 0 || K < 1 || K > MAXK;
+}
+
+template <unsigned ABL>
+int run_pass(int* tokens, long long n, const int* table, int K, int* work, int* stats,
+             cudaStream_t st) {
+  const long long nrows = n / LANES;
+  const int G = num_tiles(n);
+  if constexpr ((ABL & ABL_COPY) != 0) {
+    const cudaError_t e = cudaMemsetAsync(stats, 0, sizeof(int) * (K + 2), st);
+    if (e != cudaSuccess) return (int)e;
+    apply_kernel<ABL><<<G, THREADS, 0, st>>>(tokens, table, K, nrows, G, work);
+  } else {
+    constexpr unsigned P = ABL & ABL_NOPARITY, M = ABL & ABL_NOMINKEPT;
+    summary_kernel<P><<<G, THREADS, 0, st>>>(tokens, table, K, nrows, G, work);
+    scan_kernel<P><<<1, SCAN_THREADS, 0, st>>>(table, K, G, work);
+    apply_kernel<ABL><<<G, THREADS, 0, st>>>(tokens, table, K, nrows, G, work);
+    reduce_kernel<M><<<1, SCAN_THREADS, 0, st>>>(K, G, work, stats);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -569,15 +693,39 @@ long long zbpe_merge_work_ints(long long n) { return (long long)NFIELDS * num_ti
 // stats: int32[K + 2]. Returns cudaGetLastError() after the launches.
 int zbpe_merge_pass(int* tokens, long long n, const int* table, int K, int* work,
                     int* stats, void* stream) {
-  if (n <= 0 || n % LANES != 0 || K < 1 || K > MAXK) return (int)cudaErrorInvalidValue;
+  if (bad_args(n, K)) return (int)cudaErrorInvalidValue;
+  return run_pass<0>(tokens, n, table, K, work, stats, static_cast<cudaStream_t>(stream));
+}
+
+// The same pass with the pieces of mask ``variant`` switched off (one of the
+// variants in the header; any other mask is refused).
+int zbpe_merge_pass_ablated(int* tokens, long long n, const int* table, int K, int* work,
+                            int* stats, void* stream, int variant) {
+  if (bad_args(n, K)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long nrows = n / LANES;
-  const int G = num_tiles(n);
-  summary_kernel<<<G, THREADS, 0, st>>>(tokens, table, K, nrows, G, work);
-  scan_kernel<<<1, SCAN_THREADS, 0, st>>>(table, K, G, work);
-  apply_kernel<<<G, THREADS, 0, st>>>(tokens, table, K, nrows, G, work);
-  reduce_kernel<<<1, SCAN_THREADS, 0, st>>>(K, G, work, stats);
-  return (int)cudaGetLastError();
+  switch ((unsigned)variant) {
+    case 0:
+      return run_pass<0>(tokens, n, table, K, work, stats, st);
+    case ABL_NOFAST:
+      return run_pass<ABL_NOFAST>(tokens, n, table, K, work, stats, st);
+    case ABL_NOPARITY:
+      return run_pass<ABL_NOPARITY>(tokens, n, table, K, work, stats, st);
+    case ABL_NOMINKEPT:
+      return run_pass<ABL_NOMINKEPT>(tokens, n, table, K, work, stats, st);
+    case ABL_NOEDGEK:
+      return run_pass<ABL_NOEDGEK>(tokens, n, table, K, work, stats, st);
+    case ABL_NOCOMPACT:
+      return run_pass<ABL_NOCOMPACT>(tokens, n, table, K, work, stats, st);
+    case ABL_NOKILLS | ABL_NOCOMPACT | ABL_NOEDGEK | ABL_NOMINKEPT:
+      return run_pass<ABL_NOKILLS | ABL_NOCOMPACT | ABL_NOEDGEK | ABL_NOMINKEPT>(
+          tokens, n, table, K, work, stats, st);
+    case ABL_NOSTORE:
+      return run_pass<ABL_NOSTORE>(tokens, n, table, K, work, stats, st);
+    case ABL_COPY:
+      return run_pass<ABL_COPY>(tokens, n, table, K, work, stats, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -19,6 +19,31 @@ Both versions rewrite ``tokens`` IN PLACE (where the JAX kernel aliases its
 output to its input) and return ``(tokens, stats)`` with
 ``stats = [nhits_0 .. nhits_{K-1}, new_length, min_kept]`` (int32, on the
 tokens' device).
+
+**Ablated passes** (:func:`merge_pass_ablated`, the port of the ablated
+copies in ``scripts/probe_merge_budget.py``): the same kernel compiled with
+one piece switched off, to measure what each piece costs. ``VARIANTS``
+maps each name to the kernel's compile-time mask (``csrc/merge.cu``):
+
+- ``full``: nothing off; the production pass.
+- ``nofast``: every row is written, not only the rows that change; tokens
+  and stats equal ``full``'s.
+- ``noparity``: no slot-0 rank parity (and no whole-tile summary read for
+  a == b): every candidate hits. Equal to ``full`` when no slot has a == b.
+- ``nominkept``: no kept-row minimum: tokens, hits and length equal
+  ``full``'s, min_kept is BIG.
+- ``noedgek``: no head kill across rows and tiles: a hit kills its partner
+  only within its 128-token row.
+- ``nocompact``: no warp scan and no compaction: each hit's token becomes
+  the new token where it stands and its partner stays in the array; stats
+  (hits, kept count, min_kept) equal ``full``'s. It stands for the Pallas
+  variants ``noscan`` and ``nobitmove``.
+- ``nokills``: no partner is killed (so no compaction, no edge kill and no
+  min_kept either, as in the Pallas variant): hits written in place,
+  length = the input length, min_kept = BIG.
+- ``nostore``: no store of tokens: tokens unchanged, stats equal ``full``'s.
+- ``copy``: the apply launch alone loads each tile and stores it back;
+  tokens unchanged, stats zero.
 """
 
 from __future__ import annotations
@@ -33,6 +58,28 @@ from . import LAYOUT, PAD, _build, compact_rows
 BIG = 2**31 - 1
 MAX_SLOTS = 4
 
+# Ablation bits, equal to csrc/merge.cu's ABL_* constants.
+ABL_NOFAST = 1
+ABL_NOPARITY = 2
+ABL_NOMINKEPT = 4
+ABL_NOEDGEK = 8
+ABL_NOCOMPACT = 16
+ABL_NOKILLS = 32
+ABL_NOSTORE = 64
+ABL_COPY = 128
+
+VARIANTS = {
+    "full": 0,
+    "nofast": ABL_NOFAST,
+    "noparity": ABL_NOPARITY,
+    "nominkept": ABL_NOMINKEPT,
+    "noedgek": ABL_NOEDGEK,
+    "nocompact": ABL_NOCOMPACT,
+    "nokills": ABL_NOKILLS | ABL_NOCOMPACT | ABL_NOEDGEK | ABL_NOMINKEPT,
+    "nostore": ABL_NOSTORE,
+    "copy": ABL_COPY,
+}
+
 
 def merge_pass_multi_reference(tokens: torch.Tensor, table: torch.Tensor):
     """Plain PyTorch twin of the merge kernel (same contract, same arrays).
@@ -44,11 +91,24 @@ def merge_pass_multi_reference(tokens: torch.Tensor, table: torch.Tensor):
     slot 0 (which keeps leftmost-greedy overlap parity). Under that contract
     simultaneous application equals sequential replay in slot order.
     """
+    return _pass_reference(tokens, table, 0)
+
+
+def merge_pass_ablated_reference(tokens: torch.Tensor, table: torch.Tensor, variant: str):
+    """Plain twin of :func:`merge_pass_ablated`: the formulas of
+    :func:`merge_pass_multi_reference` with the variant's pieces switched
+    off (see ``VARIANTS``)."""
+    return _pass_reference(tokens, table, _variant_mask(variant))
+
+
+def _pass_reference(tokens: torch.Tensor, table: torch.Tensor, ablate: int):
     _check_shapes(tokens, table)
     K = table.shape[0]
+    dev = tokens.device
+    if ablate & ABL_COPY:
+        return tokens, torch.zeros(K + 2, dtype=torch.int32, device=dev)
     t2 = tokens.view(-1, LAYOUT)
     R = t2.shape[0]
-    dev = tokens.device
     valid = t2 >= 0
     pad_col = torch.full((R, 1), PAD, dtype=t2.dtype, device=dev)
     nxt_in = torch.cat([t2[:, 1:], pad_col], dim=1)
@@ -63,31 +123,38 @@ def merge_pass_multi_reference(tokens: torch.Tensor, table: torch.Tensor):
     # the last non-candidate before it is odd (-1 before the stream start)
     c0 = cands[0]
     rowpop = valid.sum(1)
-    col = torch.arange(LAYOUT, device=dev)
-    grank = (torch.cumsum(rowpop, 0) - rowpop)[:, None] + col
-    ncr = torch.where(c0 | ~valid, -1, grank)
-    last_nc = torch.cummax(ncr.reshape(-1), 0).values.view(R, LAYOUT)
-    parity_hit = c0 & (((grank - last_nc) & 1) == 1)
     hits = cands.clone()
-    hits[0] = torch.where(table[0, 0] == table[0, 1], parity_hit, c0)
+    if not ablate & ABL_NOPARITY:
+        col = torch.arange(LAYOUT, device=dev)
+        grank = (torch.cumsum(rowpop, 0) - rowpop)[:, None] + col
+        ncr = torch.where(c0 | ~valid, -1, grank)
+        last_nc = torch.cummax(ncr.reshape(-1), 0).values.view(R, LAYOUT)
+        parity_hit = c0 & (((grank - last_nc) & 1) == 1)
+        hits[0] = torch.where(table[0, 0] == table[0, 1], parity_hit, c0)
     hit = hits.any(0)
 
     written = t2
     for m in range(K):
         written = torch.where(hits[m], x[m], written)
-    edge_hit = (hit & is_last).any(1)
     killed = torch.zeros_like(valid)
-    killed[:, 1:] = hit[:, :-1]
-    killed[1:, 0] |= edge_hit[:-1]
-    killed &= valid
+    if not ablate & ABL_NOKILLS:
+        killed[:, 1:] = hit[:, :-1]
+        if not ablate & ABL_NOEDGEK:
+            edge_hit = (hit & is_last).any(1)
+            killed[1:, 0] |= edge_hit[:-1]
+        killed &= valid
     keep = valid & ~killed
 
-    t2.copy_(compact_rows(written, keep))
+    if not ablate & ABL_NOSTORE:
+        t2.copy_(written if ablate & ABL_NOCOMPACT else compact_rows(written, keep))
 
-    rowkept = keep.sum(1)
-    nonempty = torch.nonzero(rowpop > 0).flatten()
-    interior = rowkept[nonempty[:-1]]
-    min_kept = interior.min() if interior.numel() else torch.tensor(BIG, device=dev)
+    if ablate & ABL_NOMINKEPT:
+        min_kept = torch.tensor(BIG, device=dev)
+    else:
+        rowkept = keep.sum(1)
+        nonempty = torch.nonzero(rowpop > 0).flatten()
+        interior = rowkept[nonempty[:-1]]
+        min_kept = interior.min() if interior.numel() else torch.tensor(BIG, device=dev)
     stats = torch.cat([
         hits.sum((1, 2)), keep.sum().view(1), min_kept.view(1),
     ]).to(torch.int32)
@@ -104,10 +171,35 @@ def merge_pass_multi(tokens: torch.Tensor, table: torch.Tensor):
     """
     if tokens.device.type == "cpu":
         return merge_pass_multi_reference(tokens, table)
-    return _launch(tokens, table)
+    out = _launch(tokens, table, None)
+    merge_pass_multi.launches += 1
+    return out
 
 
 merge_pass_multi.launches = 0
+
+
+def merge_pass_ablated(tokens: torch.Tensor, table: torch.Tensor, variant: str):
+    """One pass of the merge kernel with the pieces of ``variant`` (a key of
+    ``VARIANTS``) switched off, in place; same arguments and stats layout as
+    :func:`merge_pass_multi`. A CPU tensor runs
+    :func:`merge_pass_ablated_reference`; a CUDA tensor launches the kernel
+    or raises. ``merge_pass_ablated.launches`` counts kernel launches."""
+    mask = _variant_mask(variant)
+    if tokens.device.type == "cpu":
+        return merge_pass_ablated_reference(tokens, table, variant)
+    out = _launch(tokens, table, mask)
+    merge_pass_ablated.launches += 1
+    return out
+
+
+merge_pass_ablated.launches = 0
+
+
+def _variant_mask(variant: str) -> int:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {', '.join(VARIANTS)}")
+    return VARIANTS[variant]
 
 
 def merge_pass(tokens: torch.Tensor, first: int, second: int, new_token: int):
@@ -141,10 +233,14 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
+    lib.zbpe_merge_pass_ablated.restype = ctypes.c_int
+    lib.zbpe_merge_pass_ablated.argtypes = [*lib.zbpe_merge_pass.argtypes, ctypes.c_int]
     return lib
 
 
-def _launch(tokens: torch.Tensor, table: torch.Tensor):
+def _launch(tokens: torch.Tensor, table: torch.Tensor, mask):
+    """One pass on CUDA tensors: the production entry for ``mask`` None,
+    else the ablated entry with that mask."""
     if not tokens.is_cuda:
         raise ValueError(
             f"the merge kernel runs on CUDA tensors (or the twin on CPU ones); "
@@ -161,12 +257,12 @@ def _launch(tokens: torch.Tensor, table: torch.Tensor):
                        device=tokens.device)
     stats = torch.empty(K + 2, dtype=torch.int32, device=tokens.device)
     with torch.cuda.device(tokens.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.zbpe_merge_pass(
-            tokens.data_ptr(), n, table.data_ptr(), K, work.data_ptr(),
-            stats.data_ptr(), stream,
-        )
+        args = (tokens.data_ptr(), n, table.data_ptr(), K, work.data_ptr(),
+                stats.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if mask is None:
+            rc = lib.zbpe_merge_pass(*args)
+        else:
+            rc = lib.zbpe_merge_pass_ablated(*args, mask)
     if rc != 0:
         raise RuntimeError(f"merge kernel launch failed: CUDA error {rc}")
-    merge_pass_multi.launches += 1
     return tokens, stats

@@ -1,0 +1,75 @@
+"""Measurement probes of the merge pass: how a pass spends its time on the
+card.
+
+    python -m zigbpe_tpu_torch.probes budget|floor|pipeline [--device cuda]
+
+Ports of the TPU measurement scripts, each on its own kernels:
+- ``budget`` (``scripts/probe_merge_budget.py``): the merge pass with one
+  piece switched off at a time (``merge_pass_ablated``), replayed over the
+  first NP passes of a real training run; the differences are the pieces'
+  costs, and ``torch.profiler`` splits ``full`` into its four launches;
+- ``floor`` (``scripts/probe_floor.py``): the blocked copy
+  (``copy_blocks``) against block size and dtype, the streaming floor;
+- ``pipeline`` (``scripts/probe_pipeline.py``): copies shaped like the merge
+  pass's grid (``copy_carry``, ``copy_peek``) against the production pass.
+
+On a CUDA device every row is timed with CUDA events: one warm-up run, then
+the median of ``runs`` runs with their range. On the CPU the probes run the
+plain twins at whatever size they are given, on the host clock, and report
+no device metric.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import time
+
+import torch
+
+# One NVIDIA H100 SXM's HBM3 bandwidth (NVIDIA data sheet), at a 700 W limit.
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def device_line(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them, or
+    a note that a CPU run measures the host."""
+    if device.type != "cuda":
+        return f"device {device}: plain PyTorch twins on the host clock, no device metric"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[device.index or 0]
+
+
+def time_runs(fn, device: torch.device, runs: int, setup=None) -> list[float]:
+    """Milliseconds of ``fn()`` in each of ``runs`` runs after one warm-up.
+    ``setup()``, when given, runs before each run and outside its span.
+    CUDA events on a CUDA device; the host clock on the CPU."""
+    if runs < 1:
+        raise ValueError(f"runs must be >= 1, got {runs}")
+    times = []
+    for i in range(runs + 1):
+        if setup is not None:
+            setup()
+        if device.type == "cuda":
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            ms = e0.elapsed_time(e1)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        if i:
+            times.append(ms)
+    return times
+
+
+def spread(times: list[float], per: int = 1) -> tuple[float, float, float]:
+    """(median, min, max) of ``times``, each divided by ``per``."""
+    return statistics.median(times) / per, min(times) / per, max(times) / per
