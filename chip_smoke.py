@@ -26,9 +26,18 @@ Phases, each of which must pass:
              merge_pass_ablated at 1 tile, many tiles, 2^25 tokens and a run
              of a spanning every tile, with an a != b and an a == b table
              (tokens and hits / length equal, the min_kept <= 1 decision
-             agreeing). Then ``python -m zigbpe_tpu_torch.probes`` floor,
-             pipeline (both tables) and budget run at full size and print
-             their tables;
+             agreeing); opmix at 2^25 tokens, int32 and int16, reps 0/4/16,
+             on seeded data and zeros; onehot_hist at 2^25 tokens for every
+             V, S and mode of the hist probe (and S = 8 with skip), on the
+             probe's tokens and on tokens with negatives, tokens past V and
+             hit-free subchunks; the lowering kernels at the shapes of
+             scripts/probe_mosaic_ops.py on its values and seeded ones (all
+             exact but dot_tn on normal values, rtol 1e-4, atol 1e-3). Each
+             is timed against its twin (and one PyTorch call where one
+             computes the same function) in spans of 20 calls. Then
+             ``python -m zigbpe_tpu_torch.probes`` floor, pipeline (both
+             tables), budget, alu16, hist and lowering run at full size and
+             print their tables;
 4. encode-kernel — the encode kernel against its twin (on a CPU copy) and
              the oracle, at rows of 1024 and 32768 tokens: every case of
              tests/test_encode_kernel.py, 8 seeds of the adversarial fuzz of
@@ -57,7 +66,7 @@ Phases, each of which must pass:
              native encoder. Times the kernel and the twin on 1024 rows, the
              kernel on the whole 1 GiB and encode_batch of the 1024 rows;
 8. count   — each kernel's launch counter, zeroed just before its path
-             (the probe kernels: the three probes of phase 3; merge: phases
+             (the probe kernels: the six probes of phase 3; merge: phases
              5-6; encode: the two encode_batch calls of phase 7), is > 0
              just after it.
 
@@ -84,7 +93,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from zigbpe_tpu_torch.probes import time_runs
+from zigbpe_tpu_torch.probes import bound_ms, time_runs
 from zigbpe_tpu_torch.probes.budget import tiled_corpus
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -100,7 +109,7 @@ SERVE_ROW = 32768       # ... as rows of 32768 tokens ...
 SERVE_MERGES = 1024     # ... under a frozen 1K-merge table
 SERVE_TABLE_BYTES = 1 << 20  # trained on the first 1 MiB, as bench.py does
 SERVE_DOCS = 1024       # config 3's rows sent through encode_batch
-KERNELS = ("merge", "encode", "copy")
+KERNELS = ("merge", "encode", "copy", "opmix", "hist", "lowering")
 
 
 class PhaseError(RuntimeError):
@@ -306,7 +315,6 @@ def phase_timing(torch, group):
 
 
 COPY_KERNELS = ("copy_blocks", "copy_carry", "copy_peek")
-PROBE_KERNELS = ("merge_pass_ablated", *COPY_KERNELS)
 PROBE_SOURCES = (  # (kernel, source, the TPU kernel's pallas_call it replaces)
     ("merge_pass_ablated", "zigbpe_tpu_torch/csrc/merge.cu",
      "scripts/probe_merge_budget.py:287"),
@@ -314,18 +322,205 @@ PROBE_SOURCES = (  # (kernel, source, the TPU kernel's pallas_call it replaces)
      "scripts/probe_floor.py:37; scripts/probe_pipeline.py:39, :168"),
     ("copy_carry", "zigbpe_tpu_torch/csrc/copy.cu", "scripts/probe_pipeline.py:65"),
     ("copy_peek", "zigbpe_tpu_torch/csrc/copy.cu", "scripts/probe_pipeline.py:98"),
+    ("opmix", "zigbpe_tpu_torch/csrc/opmix.cu", "scripts/probe_alu16.py:66"),
+    ("onehot_hist", "zigbpe_tpu_torch/csrc/hist.cu", "scripts/probe_hist.py:88"),
+    ("rows_to_column", "zigbpe_tpu_torch/csrc/lowering.cu", "scripts/probe_mosaic_ops.py:21"),
+    ("transpose", "zigbpe_tpu_torch/csrc/lowering.cu", "scripts/probe_mosaic_ops.py:21"),
+    ("iota_mod_add", "zigbpe_tpu_torch/csrc/lowering.cu", "scripts/probe_mosaic_ops.py:21"),
+    ("dot_tn", "zigbpe_tpu_torch/csrc/lowering.cu", "scripts/probe_mosaic_ops.py:21, :77"),
+    ("onehot_dot", "zigbpe_tpu_torch/csrc/lowering.cu", "scripts/probe_mosaic_ops.py:97"),
 )
+PROBE_KERNELS = tuple(name for name, _, _ in PROBE_SOURCES)
+DOT_RTOL, DOT_ATOL = 1e-4, 1e-3  # dot_tn on normal values: f32 sums in another order
+
+
+def probe_wrappers() -> dict:
+    """Each probe kernel's wrapper, whose ``launches`` counts its launches."""
+    from zigbpe_tpu_torch.ops.kernels import copy as kc, hist as kh, lowering as kl
+    from zigbpe_tpu_torch.ops.kernels import merge as km, opmix as ko
+
+    return {"merge_pass_ablated": km.merge_pass_ablated,
+            **{name: getattr(kc, name) for name in COPY_KERNELS},
+            "opmix": ko.opmix, "onehot_hist": kh.onehot_hist,
+            **{fn.__name__: fn for fn in kl.KERNELS}}
+
+
+def per_call_ms(fn, device, calls: int = 20, runs: int = 5) -> float:
+    """Mean ms per call of ``fn()`` over ``runs`` spans of ``calls`` calls
+    back to back (CUDA events), so that a span holds device time and not
+    the host's launch gap."""
+    return statistics.fmean(time_runs(lambda: [fn() for _ in range(calls)], device,
+                                      runs)) / calls
+
+
+def abs_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
+def opmix_input(torch, rows: int, dtype, R: int = 256):
+    """Seeded tokens from {-1, 32, 101, 300, 0..400} on the card, with 101
+    before 32 inside blocks and across every block's end."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    pool = torch.tensor([-1, 32, 101, 300] * 40 + list(range(401)), dtype=dtype, device="cuda")
+    x = pool[torch.randint(0, pool.numel(), (rows * 128,), generator=g, device="cuda")]
+    heads = torch.nonzero(x[:-1] == 101).view(-1)[::2]
+    x[heads + 1] = 32
+    x[R * 128 - 1::R * 128] = 101
+    x[R * 128::R * 128] = 32
+    return x.view(rows, 128)
+
+
+def check_opmix(torch, rows: int, card: str) -> dict:
+    from zigbpe_tpu_torch.ops.kernels import opmix as ko
+    from zigbpe_tpu_torch.probes import alu16
+
+    worst = 0
+    for dtype in (torch.int32, torch.int16):
+        data = opmix_input(torch, rows, dtype)
+        for label, x in (("seeded", data), ("zeros", torch.zeros_like(data))):
+            for reps in alu16.REPS:
+                got, want = ko.opmix(x, 256, reps), ko.opmix_reference(x, 256, reps)
+                err = int((got.long() - want.long()).abs().max())
+                worst = max(worst, err)
+                require(err == 0 and got.dtype == x.dtype,
+                        f"opmix != twin: {dtype} reps={reps} {label}, max_abs_err {err}")
+        fired = int((ko.opmix_reference(data, 256, 1) == 300).sum() - (data == 300).sum())
+        log(f"  opmix == twin: {dtype}, 2^25 tokens, R = 256, reps {alu16.REPS}, seeded "
+            f"({fired} candidates fire in one rep) and zeros")
+    out = {}
+    for dtype in (torch.int16, torch.int32):  # int32 last: its row is the JSON's
+        x = torch.zeros((rows, 128), dtype=dtype, device="cuda")
+        ms = per_call_ms(lambda: ko.opmix(x, 256, 16), x.device)
+        plain = per_call_ms(lambda: ko.opmix_reference(x, 256, 16), x.device, calls=5, runs=3)
+        bound, by = bound_ms(2 * x.numel() * x.element_size())
+        log(f"[probes] opmix {dtype} at 2^25 tokens, R = 256, reps 16: kernel {ms:.4f} ms, "
+            f"plain PyTorch twin {plain:.4f} ms, bound {bound:.4f} ms ({by}); {card}")
+        out = {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": by, "library_ms": None}
+    return out
+
+
+def hist_edge_tokens(torch, rows: int):
+    """Seeded tokens in [-300, 5000) on the card (negatives and tokens past
+    every V count nowhere) in which every third 32-row subchunk has no
+    multiple of 7."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    t = torch.randint(-300, 5000, (rows, 128), generator=g, device="cuda", dtype=torch.int32)
+    sub = t.view(-1, 32 * 128)
+    sub[1::3] += (sub[1::3] % 7 == 0).to(torch.int32)
+    return t
+
+
+def check_hist(torch, rows: int, card: str) -> dict:
+    from zigbpe_tpu_torch.ops.kernels import hist as kh
+    from zigbpe_tpu_torch.probes import hist as hp
+
+    worst = 0
+    x = hp.tokens(rows * 128, torch.device("cuda"))
+    edge = hist_edge_tokens(torch, rows)
+    cases = hp.CASES + (("S= 8 skip-on dense", 8, hp.DENSITY, True),)
+    for label, data in (("probe tokens", x), ("edge tokens", edge)):
+        for V in hp.VOCABS:
+            for name, S, dmod, skip in cases:
+                (out, h), (tw_out, tw_h) = (kh.onehot_hist(data, 256, V, S, dmod, skip),
+                                            kh.onehot_hist_reference(data, 256, V, S, dmod, skip))
+                err = max(int((out - tw_out).abs().max()), int((h - tw_h).abs().max()))
+                worst = max(worst, err)
+                require(err == 0 and h.shape == (2 * kh.vocab_rows(V), 128),
+                        f"onehot_hist != twin: {label} V={V} {name}, max_abs_err {err}")
+        kept = kh.kept_subchunks(data, 256, 32, hp.DENSITY, True)
+        log(f"  onehot_hist == twin: {label}, V {hp.VOCABS}, every case; S = 32 with skip "
+            f"keeps {int(kept.sum())} of {kept.numel()} subchunks")
+    require(not bool(kh.kept_subchunks(edge, 256, 32, hp.DENSITY, True).all()),
+            "the edge tokens have no hit-free subchunk")
+    V, S = 4352, 32
+    ms = per_call_ms(lambda: kh.onehot_hist(x, 256, V, S, hp.DENSITY, False), x.device)
+    plain = per_call_ms(lambda: kh.onehot_hist_reference(x, 256, V, S, hp.DENSITY, False),
+                        x.device)
+    span = kh.vocab_rows(V) * 128
+    bins = (x + (x % hp.DENSITY == 0).to(torch.int32) * span).view(-1).long()
+    library = per_call_ms(lambda: torch.bincount(bins, minlength=2 * span), x.device)
+    bound, by = hp.bound(x, V)
+    mma = hp.onehot_mma_ms(x, 256, V, S, hp.DENSITY, False)
+    log(f"[probes] onehot_hist at 2^25 tokens, R = 256, V = {V}, S = {S}, dense: kernel "
+        f"{ms:.4f} ms, plain PyTorch twin {plain:.4f} ms, torch.bincount of the bins (no copy) "
+        f"{library:.4f} ms, bound {bound:.4f} ms ({by}), the one-hot products at peak bf16 "
+        f"{mma:.4f} ms; {card}")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "library_ms": library}
+
+
+def check_lowering(torch, card: str) -> dict:
+    """Every lowering construct against its twin at the script's shapes, on
+    the script's values and on seeded ones (exact), dot_tn also on normal
+    values (within DOT_RTOL, DOT_ATOL); then each kernel timed."""
+    from zigbpe_tpu_torch.ops.kernels import lowering as kl
+    from zigbpe_tpu_torch.probes import lowering as lp
+
+    dev = torch.device("cuda")
+    worst = {}
+    for seed in (None, 17):
+        for construct, kernel, args in lp.constructs(dev, seed):
+            got, want = kernel(*args), lp.twin(kernel)(*args)
+            require(got.shape == want.shape and got.dtype == want.dtype,
+                    f"{construct}: {tuple(got.shape)} {got.dtype} against "
+                    f"{tuple(want.shape)} {want.dtype}")
+            err = abs_err(got, want)
+            require(err == 0, f"{construct} != twin (seed {seed}): max_abs_err {err}")
+            worst[kernel.__name__] = max(worst.get(kernel.__name__, 0.0), err)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    for K, M in ((256, 128), (4096, 8)):  # the (256,128) product and the skinny one
+        a = torch.randn((K, M), generator=g, device="cuda").to(torch.bfloat16)
+        b = torch.randn((K, 128), generator=g, device="cuda").to(torch.bfloat16)
+        got, want = kl.dot_tn(a, b), kl.dot_tn_reference(a, b)
+        err = abs_err(got, want)
+        require(bool(((got - want).abs() <= DOT_ATOL + DOT_RTOL * want.abs()).all()),
+                f"dot_tn != twin on normal values {tuple(a.shape)}, {tuple(b.shape)}: "
+                f"max_abs_err {err}")
+        worst["dot_tn"] = max(worst["dot_tn"], err)
+    log(f"  lowering kernels == twins at the script's shapes (exact; dot_tn on normal values "
+        f"within rtol {DOT_RTOL}, atol {DOT_ATOL}): max_abs_err {worst}")
+
+    v = lp.inputs(dev)
+    x, f, t1 = v["x"], v["f"], v["t1"]
+    n32 = x.numel() * 4
+    timed = {  # kernel, twin, one PyTorch call or None, (bytes, flops)
+        "rows_to_column": (lambda: kl.rows_to_column(x), lambda: kl.rows_to_column_reference(x),
+                           lambda: x.view(-1, 1).clone(), (2 * n32, 0)),
+        "transpose": (lambda: kl.transpose(x), lambda: kl.transpose_reference(x),
+                      lambda: x.t().contiguous(), (2 * n32, 0)),
+        "iota_mod_add": (lambda: kl.iota_mod_add(x, 4), lambda: kl.iota_mod_add_reference(x, 4),
+                         None, (2 * n32, 0)),
+        "dot_tn": (lambda: kl.dot_tn(f, f), lambda: kl.dot_tn_reference(f, f),
+                   lambda: torch.matmul(f.t().float(), f.float()),
+                   (2 * f.numel() * 2 + 128 * 128 * 4, 2 * 256 * 128 * 128)),
+        "onehot_dot": (lambda: kl.onehot_dot(t1), lambda: kl.onehot_dot_reference(t1),
+                       lambda: torch.bincount(t1.view(-1), minlength=1024),
+                       (t1.numel() * 4 + 8 * 128 * 4, 0)),  # a count: no products
+    }
+    out = {}
+    for name, (kernel, twin, library, (nbytes, flops)) in timed.items():
+        ms, plain = per_call_ms(kernel, dev), per_call_ms(twin, dev)
+        lib = per_call_ms(library, dev) if library else None
+        bound, by = bound_ms(nbytes, flops)
+        log(f"[probes] {name} at the script's shapes: kernel {ms:.4f} ms, plain PyTorch twin "
+            f"{plain:.4f} ms, one PyTorch call {'none' if lib is None else f'{lib:.4f} ms'}, "
+            f"bound {bound:.6f} ms ({by}); {card}")
+        out[name] = {"max_abs_err": worst[name], "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib}
+    return out
 
 
 def phase_probes(torch, group, card):
-    """The probe kernels against their twins (on the card), then the three
+    """The probe kernels against their twins (on the card), then the six
     probes at full size with every probe kernel's count from zero. Returns
-    {kernel: {launches, max_abs_err, ms, plain_ms}}."""
+    {kernel: {launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms}}."""
     from zigbpe_tpu_torch.ops.kernels import copy as kc, merge as km
-    from zigbpe_tpu_torch.probes import budget, floor, pipeline
+    from zigbpe_tpu_torch.probes import alu16, budget, floor, hist, lowering, pipeline
 
     t0 = time.perf_counter()
-    worst = dict.fromkeys(PROBE_KERNELS, 0)
+    worst = dict.fromkeys(("merge_pass_ablated", *COPY_KERNELS), 0)
     rows = (1 << 25) // 128
     rng = np.random.default_rng(5)
     for np_dtype in (np.int32, np.int16):
@@ -366,41 +561,55 @@ def phase_probes(torch, group, card):
                         f"gpu {gst.tolist()} twin {cst.tolist()}")
         log(f"  merge_pass_ablated == twin, every variant: {label} n={arr.size} "
             f"(tables {group[0]} and {(aa, aa, 256)})")
-    log(f"[probes] ok: probe kernels == twins, max_abs_err {worst} "
+    log(f"[probes] ok: merge and copy probe kernels == twins, max_abs_err {worst} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # kernel against twin at the probes' shapes, both on the card
     x = torch.zeros((rows, 128), dtype=torch.int32, device="cuda")
-    times = {}
-    for name in COPY_KERNELS:  # 20 calls back to back per span, so that
-        # the span holds device time and not the host's launch gap
+    stream = bound_ms(2 * x.numel() * 4)  # one read and one write of 2^25 int32 tokens
+    rows_out = {}
+    for name in COPY_KERNELS:
         fn, twin = getattr(kc, name), getattr(kc, f"{name}_reference")
-        times[name] = tuple(
-            statistics.fmean(time_runs(lambda f=f: [f(x, 256) for _ in range(20)],
-                                       x.device, 5)) / 20
-            for f in (fn, twin))
+        rows_out[name] = {"ms": per_call_ms(lambda: fn(x, 256), x.device),
+                          "plain_ms": per_call_ms(lambda: twin(x, 256), x.device),
+                          "library_ms": None}
+    rows_out["copy_blocks"]["library_ms"] = per_call_ms(x.clone, x.device)
     src = torch.from_numpy(padded(tiled_corpus((1 << 25) - 100), 1 << 25)).cuda()
     t = torch.tensor([group[0]], dtype=torch.int32, device="cuda")
-    times["merge_pass_ablated"] = (
-        time_pass(lambda w, tb: km.merge_pass_ablated(w, tb, "full"), src, t, 20),
-        time_pass(lambda w, tb: km.merge_pass_ablated_reference(w, tb, "full"), src, t, 5))
-    for name, (ms, plain) in times.items():
+    rows_out["merge_pass_ablated"] = {
+        "ms": time_pass(lambda w, tb: km.merge_pass_ablated(w, tb, "full"), src, t, 20),
+        "plain_ms": time_pass(lambda w, tb: km.merge_pass_ablated_reference(w, tb, "full"),
+                              src, t, 5),
+        "library_ms": None}
+    for name, row in rows_out.items():
+        row.update(max_abs_err=worst[name], bound_ms=stream[0], bound_by=stream[1])
         shape = f"full pass of {group[0]}" if name == "merge_pass_ablated" else "R = 256"
-        log(f"[probes] {name} at 2^25 int32 tokens ({shape}): kernel {ms:.4f} ms, "
-            f"plain PyTorch twin {plain:.4f} ms (CUDA events, mean per call); {card}")
+        lib = "" if row["library_ms"] is None else f", torch.clone {row['library_ms']:.4f} ms"
+        log(f"[probes] {name} at 2^25 int32 tokens ({shape}): kernel {row['ms']:.4f} ms, "
+            f"plain PyTorch twin {row['plain_ms']:.4f} ms{lib} (CUDA events, mean per call); "
+            f"{card}")
     del x, src
 
+    t1 = time.perf_counter()
+    rows_out["opmix"] = check_opmix(torch, rows, card)
+    rows_out["onehot_hist"] = check_hist(torch, rows, card)
+    rows_out.update(check_lowering(torch, card))
+    log(f"[probes] ok: opmix, onehot_hist and the lowering kernels == twins "
+        f"({time.perf_counter() - t1:.1f} s)")
+
     # the probes' own path, each counter from zero
-    for name in PROBE_KERNELS:
-        getattr(km if name == "merge_pass_ablated" else kc, name).launches = 0
+    wrappers = probe_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
     floor.run("cuda")
     pipeline.run("cuda")
     pipeline.run("cuda", loop=True)
     budget.run("cuda")
-    launches = {name: getattr(km if name == "merge_pass_ablated" else kc, name).launches
-                for name in PROBE_KERNELS}
-    return {name: {"launches": launches[name], "max_abs_err": worst[name],
-                   "ms": times[name][0], "plain_ms": times[name][1]} for name in PROBE_KERNELS}
+    alu16.run("cuda")
+    hist.run("cuda", passes=8)  # 12 cases of up to 4 ms a pass: 8 keep the phase short
+    lowering.run("cuda")
+    return {name: {"launches": wrappers[name].launches, **rows_out[name]}
+            for name in PROBE_KERNELS}
 
 
 def phase_golden(torch):
@@ -779,11 +988,16 @@ def main() -> int:
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     ms, plain = timing["K=4"]
+    # bounds from the shapes: a pass over 2^25 int32 tokens reads and writes
+    # each once; the encode kernel on 1024 x 32768 tokens moves 8 B a token
+    pass_bound, pass_by = bound_ms(2 * 4 * (1 << 25))
+    enc_bound, enc_by = bound_ms(8 * 1024 * SERVE_ROW)
     kernels = [{
         "name": "merge_pass_multi", "route": "cuda",
         "source": "zigbpe_tpu_torch/csrc/merge.cu",
         "replaces": "zigbpe_tpu/ops/pallas/merge.py:222",
         "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+        "bound_ms": pass_bound, "bound_by": pass_by, "library_ms": None,
     }, {
         "name": ke.encode_rows_grouped.__name__, "route": "cuda",
         "source": "zigbpe_tpu_torch/csrc/encode.cu",
@@ -791,6 +1005,7 @@ def main() -> int:
         "launches": serving["launches"],
         "max_abs_err": max(enc_err, serving["max_abs_err"]),
         "ms": serving["ms"], "plain_ms": serving["plain_ms"],
+        "bound_ms": enc_bound, "bound_by": enc_by, "library_ms": None,
     }]
     for name, source, replaces in PROBE_SOURCES:
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -14,7 +14,10 @@ from zigbpe_tpu_torch import BasicTokenizer, train
 from zigbpe_tpu_torch.ops import core
 from zigbpe_tpu_torch.ops.kernels import copy as kcopy
 from zigbpe_tpu_torch.ops.kernels import encode as kencode
+from zigbpe_tpu_torch.ops.kernels import hist as khist
+from zigbpe_tpu_torch.ops.kernels import lowering as klow
 from zigbpe_tpu_torch.ops.kernels import merge as kmerge
+from zigbpe_tpu_torch.ops.kernels import opmix as kopmix
 
 REPO = Path(__file__).resolve().parents[1]
 MODULES = [
@@ -28,7 +31,10 @@ MODULES = [
     "zigbpe_tpu_torch.utils.state", "zigbpe_tpu_torch.ops.kernels.copy",
     "zigbpe_tpu_torch.probes", "zigbpe_tpu_torch.probes.__main__",
     "zigbpe_tpu_torch.probes.budget", "zigbpe_tpu_torch.probes.floor",
-    "zigbpe_tpu_torch.probes.pipeline",
+    "zigbpe_tpu_torch.probes.pipeline", "zigbpe_tpu_torch.ops.kernels.opmix",
+    "zigbpe_tpu_torch.ops.kernels.hist", "zigbpe_tpu_torch.ops.kernels.lowering",
+    "zigbpe_tpu_torch.probes.alu16", "zigbpe_tpu_torch.probes.hist",
+    "zigbpe_tpu_torch.probes.lowering",
 ]
 
 
@@ -57,6 +63,7 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
            "PYTHONPATH": str(REPO)}
     code = (
         "from zigbpe_tpu_torch.ops.kernels import _build, copy, encode, merge\n"
+        "from zigbpe_tpu_torch.ops.kernels import hist, lowering, opmix\n"
         "import zigbpe_tpu_torch.probes.__main__\n"
         "assert _build._libs == {}\n"
         "try:\n"
@@ -80,6 +87,15 @@ def test_cuda_request_raises_without_a_card():
         core.pad_tokens(b"hello", 256, device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         train.train(b"hello hello", 300, device="cuda")
+
+
+def test_train_defaults_to_the_card():
+    """train.train runs on the card unless asked otherwise, as the JAX
+    package's runs on its default accelerator: without a card it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        train.train(b"hello hello", 300)
 
 
 def test_merge_pass_on_a_non_cpu_tensor_never_runs_the_twin():
@@ -230,3 +246,70 @@ def test_probe_cli_refuses_cuda_without_a_card():
 
     with pytest.raises(RuntimeError, match="cuda"):
         probes_main.main(["floor"])
+
+
+def _meta(shape, dtype=torch.int32):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+NEW_PROBE_CALLS = {
+    "opmix": (kopmix.opmix, lambda: kopmix.opmix(_meta((16, 128)), 8, 4)),
+    "onehot_hist": (khist.onehot_hist,
+                    lambda: khist.onehot_hist(_meta((16, 128)), 8, 512, 8, 7, True)),
+    "rows_to_column": (klow.rows_to_column, lambda: klow.rows_to_column(_meta((32, 128)))),
+    "transpose": (klow.transpose, lambda: klow.transpose(_meta((32, 128)))),
+    "iota_mod_add": (klow.iota_mod_add, lambda: klow.iota_mod_add(_meta((32, 128)), 4)),
+    "dot_tn": (klow.dot_tn, lambda: klow.dot_tn(_meta((256, 128), torch.bfloat16),
+                                                _meta((256, 128), torch.bfloat16))),
+    "onehot_dot": (klow.onehot_dot, lambda: klow.onehot_dot(_meta((4096, 1)))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_PROBE_CALLS))
+def test_new_probe_kernels_on_a_non_cpu_tensor_never_run_the_twin(name):
+    wrapper, call = NEW_PROBE_CALLS[name]
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("shape,dtype,R,reps,match", [
+    ((16, 128), torch.int64, 8, 4, "int32 or int16"),
+    ((16, 64), torch.int32, 8, 4, r"\(rows, 128\)"),
+    ((16, 128), torch.int32, 3, 4, "multiple of rows_per_block"),
+    ((16, 128), torch.int16, 8, -1, "reps must be >= 0"),
+    ((16, 128), torch.int32, 8, -4, "reps must be >= 0"),
+])
+def test_opmix_rejects_bad_arguments(shape, dtype, R, reps, match):
+    with pytest.raises(ValueError, match=match):
+        kopmix.opmix(torch.zeros(shape, dtype=dtype), R, reps)
+
+
+@pytest.mark.parametrize("shape,dtype,R,V,S,dmod,match", [
+    ((16, 128), torch.int16, 8, 512, 8, 7, "int32"),
+    ((16, 128), torch.int32, 3, 512, 1, 7, "multiple of rows_per_block"),
+    ((16, 128), torch.int32, 8, 512, 3, 7, "sub_rows 3 must divide"),
+    ((192, 128), torch.int32, 192, 512, 192, 7, "at most 96"),
+    ((16, 128), torch.int32, 8, 4609, 8, 7, r"vocab must be in \[1, 4608\]"),
+    ((16, 128), torch.int32, 8, 0, 8, 7, "vocab must be in"),
+    ((16, 128), torch.int32, 8, 512, 8, -7, "density_mod"),
+])
+def test_onehot_hist_rejects_bad_arguments(shape, dtype, R, V, S, dmod, match):
+    with pytest.raises(ValueError, match=match):
+        khist.onehot_hist(torch.zeros(shape, dtype=dtype), R, V, S, dmod, False)
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: klow.rows_to_column(torch.zeros((32, 128), dtype=torch.int16)), "int32"),
+    (lambda: klow.transpose(torch.zeros((4096,), dtype=torch.int32)), "2-d int32"),
+    (lambda: klow.iota_mod_add(torch.zeros((32, 128), dtype=torch.int32), 0), "m must be"),
+    (lambda: klow.dot_tn(torch.ones((256, 128)), torch.ones((256, 128))), "bf16"),
+    (lambda: klow.dot_tn(torch.ones((24, 16), dtype=torch.bfloat16),
+                         torch.ones((24, 16), dtype=torch.bfloat16)), "multiple of 16"),
+    (lambda: klow.onehot_dot(torch.zeros((4096,), dtype=torch.int32)), r"\(n, 1\)"),
+    (lambda: klow.onehot_dot(torch.zeros((4008, 1), dtype=torch.int32)), "multiple of 16"),
+])
+def test_lowering_kernels_reject_bad_arguments(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()

@@ -1,7 +1,8 @@
 """Measurement probes of the merge pass: how a pass spends its time on the
 card.
 
-    python -m zigbpe_tpu_torch.probes budget|floor|pipeline [--device cuda]
+    python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering
+        [--device cuda]
 
 Ports of the TPU measurement scripts, each on its own kernels:
 - ``budget`` (``scripts/probe_merge_budget.py``): the merge pass with one
@@ -11,7 +12,14 @@ Ports of the TPU measurement scripts, each on its own kernels:
 - ``floor`` (``scripts/probe_floor.py``): the blocked copy
   (``copy_blocks``) against block size and dtype, the streaming floor;
 - ``pipeline`` (``scripts/probe_pipeline.py``): copies shaped like the merge
-  pass's grid (``copy_carry``, ``copy_peek``) against the production pass.
+  pass's grid (``copy_carry``, ``copy_peek``) against the production pass;
+- ``alu16`` (``scripts/probe_alu16.py``): the merge kernel's op mix
+  (``opmix``) in int32 against packed int16;
+- ``hist`` (``scripts/probe_hist.py``): the blocked copy with two masked
+  one-hot histograms on the tensor cores (``onehot_hist``), against the
+  plain copy;
+- ``lowering`` (``scripts/probe_mosaic_ops.py``): each construct the TPU
+  build checked (``ops.kernels.lowering``), held against its twin.
 
 On a CUDA device every row is timed with CUDA events: one warm-up run, then
 the median of ``runs`` runs with their range. On the CPU the probes run the
@@ -27,8 +35,19 @@ import time
 
 import torch
 
-# One NVIDIA H100 SXM's HBM3 bandwidth (NVIDIA data sheet), at a 700 W limit.
+# One NVIDIA H100 SXM's HBM3 bandwidth and dense bf16 tensor-core rate
+# (NVIDIA data sheet), at a 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+
+
+def bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """The least time the card could take for work that moves ``nbytes``
+    and does ``flops`` bf16 tensor-core operations, and which of the two
+    sets it: (ms, "bytes" or "operations")."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
 
 
 def device_line(device: torch.device) -> str:

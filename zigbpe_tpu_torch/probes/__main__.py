@@ -1,10 +1,11 @@
-"""python -m zigbpe_tpu_torch.probes budget|floor|pipeline [--device cuda]"""
+"""python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering
+[--device cuda]"""
 
 from __future__ import annotations
 
 import argparse
 
-from . import budget, floor, pipeline
+from . import alu16, budget, floor, hist, lowering, pipeline
 
 
 def main(argv=None) -> int:
@@ -22,13 +23,25 @@ def main(argv=None) -> int:
     sub.add_parser("floor", help="blocked copy against block size and dtype")
     p = sub.add_parser("pipeline", help="copies shaped like the merge grid, and the merge")
     p.add_argument("--loop", action="store_true", help="64 chained copies against 64 merges")
+    for name, what in (("alu16", "the merge kernel's op mix in int32 and packed int16"),
+                       ("hist", "a blocked copy with one-hot histograms on the tensor cores")):
+        s = sub.add_parser(name, help=what)
+        s.add_argument("--tokens", type=int, default=1 << 25, help="tokens per array")
+        s.add_argument("--passes", type=int, default=32, help="chained passes per run")
+    sub.add_parser("lowering", help="the TPU build's lowering checks against their twins")
     args = parser.parse_args(argv)
     if args.probe == "budget":
         budget.run(args.device, nbytes=args.mb << 20, np_passes=args.np_passes, runs=args.runs)
     elif args.probe == "floor":
         floor.run(args.device, runs=args.runs)
-    else:
+    elif args.probe == "pipeline":
         pipeline.run(args.device, loop=args.loop, runs=args.runs)
+    elif args.probe == "alu16":
+        alu16.run(args.device, n_tokens=args.tokens, passes=args.passes, runs=args.runs)
+    elif args.probe == "hist":
+        hist.run(args.device, n_tokens=args.tokens, passes=args.passes, runs=args.runs)
+    else:
+        lowering.run(args.device)
     return 0
 
 

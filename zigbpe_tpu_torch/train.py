@@ -55,9 +55,10 @@ def train(
     checkpoint_dir: Optional[str] = None,
     detailed_stats: bool = False,
     merge_group: Optional[int] = None,
-    device="cpu",
+    device="cuda",
 ) -> List[Merge]:
-    """Train a BPE merge table on ``device``; exact reference semantics
+    """Train a BPE merge table on ``device`` (the card unless the caller
+    asks for the CPU); exact reference semantics
     (basic_tokenizer.zig:140-205). Returns the ordered merge list."""
     if vocab_size < core.VOCAB_START:
         raise ValueError(f"vocab_size must be >= 256, got {vocab_size}")
