@@ -32,9 +32,14 @@ Phases, each of which must pass:
              probe's tokens and on tokens with negatives, tokens past V and
              hit-free subchunks; the lowering kernels at the shapes of
              scripts/probe_mosaic_ops.py on its values and seeded ones (all
-             exact but dot_tn on normal values, rtol 1e-4, atol 1e-3). Each
-             is timed against its twin (and one PyTorch call where one
-             computes the same function) in spans of 20 calls. Then
+             exact but dot_tn on normal values, rtol 1e-4, atol 1e-3), and
+             rows_to_column and transpose also at ragged, misaligned, 2^25
+             and tall (2^22, 1) shapes, each launch's geometry against the
+             Python plan. Each is timed against its twin (and one PyTorch
+             call where one computes the same function) in spans of 20
+             calls; the two copies in turns with that call, at the script's
+             shape (also device time from a CUDA graph and host enqueue time)
+             and at 2^25 int32, beside their bytes bound. Then
              ``python -m zigbpe_tpu_torch.probes`` floor, pipeline (both
              tables), budget, alu16, hist and lowering run at full size and
              print their tables;
@@ -450,10 +455,145 @@ def check_hist(torch, rows: int, card: str) -> dict:
             "bound_by": by, "library_ms": library}
 
 
+COPY_SHAPES = ((32, 128), (262144, 128), (1, 1), (1, 5), (77, 1), (77, 128), (1000, 77),
+               (4097, 129), (1 << 22, 1))  # the script's, 2^25, ragged, and more row
+# tiles than grid.y holds (65,535)
+COPY_CALLS = {"rows_to_column": lambda t: t.view(-1, 1).clone(),  # one PyTorch call each
+              "transpose": lambda t: t.t().contiguous()}
+
+
+def check_copies(torch) -> None:
+    """rows_to_column and transpose against their twins (exact) on seeded
+    int32 at every COPY_SHAPES shape, each as views 0, 4, 8 and 12 bytes
+    past 16; each launch's geometry as the C side computes it
+    (zbpe_lowering_plan) equals the Python plan, and the cases take every
+    path (the four transpose variants, the vector and the scalar column).
+    Then the column's head, on pointers aligned alike 4, 8 and 12 bytes past
+    16, through its entry (the wrapper's output is always aligned)."""
+    from zigbpe_tpu_torch.ops.kernels import lowering as kl
+    from zigbpe_tpu_torch.probes import lowering as lp
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    paths = set()
+    for shape in COPY_SHAPES:
+        n = shape[0] * shape[1]
+        base = torch.randint(-2**31, 2**31 - 1, (n + 3,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        for off in range(4):
+            x = base[off:off + n].view(shape)
+            for kernel in (kl.rows_to_column, kl.transpose):
+                got, want = kernel(x), lp.twin(kernel)(x)
+                require(got.shape == want.shape and got.dtype == want.dtype
+                        and torch.equal(got, want),
+                        f"{kernel.__name__} != twin on {shape} {4 * off} bytes off")
+                src, dst = x.data_ptr(), got.data_ptr()
+                if kernel is kl.rows_to_column:
+                    plan = kl.column_plan(n, src, dst)
+                    paths.add(("column", plan.vecs > 0))
+                    shown = kl.device_plan(kernel, src, dst, n)
+                else:
+                    plan = kl.transpose_plan(*shape, src, dst)
+                    paths.add(("transpose", plan.load_vec, plan.store_vec))
+                    shown = kl.device_plan(kernel, src, dst, *shape)
+                require(tuple(map(int, plan)) == shown, f"{kernel.__name__} on {shape} "
+                        f"{4 * off} bytes off: plan {plan} != the C side's {shown}")
+    require(len(paths) == 6, f"the cases miss a path: {sorted(paths)}")
+    n = (1 << 20) + 5
+    src = torch.randint(-2**31, 2**31 - 1, (n + 3,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    for off in (1, 2, 3):
+        buf = torch.full((n + 3,), -7, dtype=torch.int32, device="cuda")
+        s, d = src[off:off + n].data_ptr(), buf[off:off + n].data_ptr()
+        plan = kl.column_plan(n, s, d)
+        require(plan.head == 4 - off and plan.vecs > 0 and kl.device_plan(
+            kl.rows_to_column, s, d, n) == tuple(plan), f"column head plan {plan}")
+        kl._ROWS_TO_COLUMN(src.get_device(), s, d, n)
+        want = torch.full_like(buf, -7)
+        want[off:off + n] = src[off:off + n]
+        require(torch.equal(buf, want), f"rows_to_column's head path wrong {4 * off} bytes off")
+    log(f"  rows_to_column and transpose == twins (exact) at {len(COPY_SHAPES)} shapes x 4 "
+        f"offsets, C geometry == Python plan on each, paths {sorted(paths)}; column head "
+        f"4-12 bytes off == source")
+
+
+def in_turns(fn_a, fn_b, device) -> tuple[list[float], list[float]]:
+    """per_call_ms of fn_a and fn_b in turns: a, b, b, a."""
+    a1, b1, b2, a2 = (per_call_ms(f, device) for f in (fn_a, fn_b, fn_b, fn_a))
+    return [a1, a2], [b1, b2]
+
+
+def graph_ms(torch, fn, calls: int = 20, replays: int = 10) -> float:
+    """Device ms per call of ``fn()``: a CUDA graph captures ``calls`` calls,
+    and runs of ``replays`` replays are timed with CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kept = [fn() for _ in range(calls)]
+    runs = time_runs(lambda: [graph.replay() for _ in range(replays)], torch.device("cuda"), 3)
+    del kept
+    return statistics.fmean(runs) / (calls * replays)
+
+
+def host_us(torch, fn, calls: int = 2000) -> float:
+    """Host microseconds to enqueue one call of ``fn()``, over ``calls`` calls
+    back to back after a warm-up (the card synchronised before and after,
+    outside the span)."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def time_copy(torch, name: str, x, card: str) -> tuple[float, float]:
+    """A redesigned copy kernel against its one PyTorch call, in turns, at
+    the script's shape ``x`` (per call, device time from a CUDA graph, host
+    enqueue time) and at 2^25 int32 (262144, 128), each beside its bytes
+    bound and the design's targets. Returns (kernel ms, call ms) per call at
+    the script's shape."""
+    from zigbpe_tpu_torch.ops.kernels import lowering as kl
+
+    kernel, call = getattr(kl, name), COPY_CALLS[name]
+    dev = x.device
+    ks, cs = in_turns(lambda: kernel(x), lambda: call(x), dev)
+    k_dev, c_dev = graph_ms(torch, lambda: kernel(x)), graph_ms(torch, lambda: call(x))
+    k_host, c_host = host_us(torch, lambda: kernel(x)), host_us(torch, lambda: call(x))
+    ms, lib = statistics.fmean(ks), statistics.fmean(cs)
+    bound, _ = bound_ms(2 * x.numel() * 4)
+    log(f"[probes] {name} at {tuple(x.shape)}: per call (turns kernel, call, call, kernel) "
+        f"kernel {ms:.4f} ms ({ks[0]:.4f}, {ks[1]:.4f}), one PyTorch call {lib:.4f} ms "
+        f"({cs[0]:.4f}, {cs[1]:.4f}); device per call (CUDA graph of 20) kernel {k_dev:.5f} ms, "
+        f"call {c_dev:.5f} ms; host enqueue per call kernel {k_host:.2f} us, call "
+        f"{c_host:.2f} us; bound {bound:.6f} ms (bytes); target kernel <= call: "
+        f"{'held' if ms <= lib else 'missed'}; {card}")
+    big = torch.randint(-2**31, 2**31 - 1, (262144, 128), device="cuda", dtype=torch.int32,
+                        generator=torch.Generator(device="cuda").manual_seed(29))
+    require(torch.equal(kernel(big), call(big)), f"{name} != its PyTorch call at 2^25")
+    kb, cb = in_turns(lambda: kernel(big), lambda: call(big), dev)
+    big_ms, big_lib = statistics.fmean(kb), statistics.fmean(cb)
+    bound, _ = bound_ms(2 * big.numel() * 4)
+    log(f"[probes] {name} at (262144, 128) = 2^25 int32: kernel {big_ms:.4f} ms "
+        f"({kb[0]:.4f}, {kb[1]:.4f}), one PyTorch call {big_lib:.4f} ms ({cb[0]:.4f}, "
+        f"{cb[1]:.4f}), bound {bound:.4f} ms (bytes), kernel / bound {big_ms / bound:.3f}; "
+        f"target <= 2x bound: {'held' if big_ms <= 2 * bound else 'missed'}, target <= call: "
+        f"{'held' if big_ms <= big_lib else 'missed'}; {card}")
+    return ms, lib
+
+
 def check_lowering(torch, card: str) -> dict:
     """Every lowering construct against its twin at the script's shapes, on
     the script's values and on seeded ones (exact), dot_tn also on normal
-    values (within DOT_RTOL, DOT_ATOL); then each kernel timed."""
+    values (within DOT_RTOL, DOT_ATOL), and the redesigned copies on
+    check_copies' cases; then each kernel timed (the copies by
+    time_copy)."""
     from zigbpe_tpu_torch.ops.kernels import lowering as kl
     from zigbpe_tpu_torch.probes import lowering as lp
 
@@ -480,6 +620,7 @@ def check_lowering(torch, card: str) -> dict:
         worst["dot_tn"] = max(worst["dot_tn"], err)
     log(f"  lowering kernels == twins at the script's shapes (exact; dot_tn on normal values "
         f"within rtol {DOT_RTOL}, atol {DOT_ATOL}): max_abs_err {worst}")
+    check_copies(torch)
 
     v = lp.inputs(dev)
     x, f, t1 = v["x"], v["f"], v["t1"]
@@ -500,8 +641,11 @@ def check_lowering(torch, card: str) -> dict:
     }
     out = {}
     for name, (kernel, twin, library, (nbytes, flops)) in timed.items():
-        ms, plain = per_call_ms(kernel, dev), per_call_ms(twin, dev)
-        lib = per_call_ms(library, dev) if library else None
+        if name in COPY_CALLS:
+            ms, lib = time_copy(torch, name, x, card)
+        else:
+            ms, lib = per_call_ms(kernel, dev), per_call_ms(library, dev) if library else None
+        plain = per_call_ms(twin, dev)
         bound, by = bound_ms(nbytes, flops)
         log(f"[probes] {name} at the script's shapes: kernel {ms:.4f} ms, plain PyTorch twin "
             f"{plain:.4f} ms, one PyTorch call {'none' if lib is None else f'{lib:.4f} ms'}, "

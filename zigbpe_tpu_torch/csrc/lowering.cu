@@ -16,15 +16,46 @@
 // On the TPU a construct that does not lower raises and the script prints
 // FAIL; here it fails the build, and a wrong one fails its twin check.
 //
-// What bounds them on an H100: launch latency (a few microseconds); each
-// moves at most a few hundred KB and does at most 2 * 128 * 128 * 4096
-// flops. What the design does about it: the plainest kernel per construct.
-// The products give each warp one 16 x 8 tile of the output and walk K in
-// steps of 16 with mma.sync.m16n8k16, loading each fragment's bf16 values
-// straight from device memory (the inputs are a^T-major, so no shared
-// memory transpose is needed). An output with fewer than 16 rows is computed
-// as its transpose, b^T . a, and written back transposed, as the histogram
-// kernel lays out its one-hots.
+// What bounds them on an H100. rows_to_column and transpose move 8 bytes
+// an element (one read, one write): 256 MiB at 2^25 int32, 80.1 us at
+// 3.35 TB/s. At the script's (32, 128) they move 32 KB, and a call is
+// bound by the host's launch path (PERF.md), not by the card. The others
+// are bound by launch latency (a few microseconds): each moves at most a
+// few hundred KB and does at most 2 * 128 * 128 * 4096 flops.
+//
+// What the design does about it.
+// - transpose: one block of TILE_THREADS threads per TILE x TILE int32
+//   tile (16 KB of shared memory), the tiles on a 1-D grid.x (up to
+//   2^31 - 1 of them; grid.y stops at 65,535). Each thread loads 16-byte
+//   vectors along input rows and stores 16-byte vectors along output rows.
+//   The tile sits in shared memory in 16-byte chunks swizzled by XOR (chunk
+//   k of tile row r at chunk k ^ ((r / 4) % 8)), so that neither the vector
+//   writes into it (8 lanes cover 128 contiguous bytes) nor the column reads
+//   out of it (a warp reads 4 tile columns x 8 row chunks, 32 banks) conflict
+//   on banks. A side whose rows do not start on 16 bytes (cols % 4 or rows
+//   % 4 not 0, or a pointer off 16 bytes, as a view with a storage offset
+//   is) moves scalars, a warp on 32 neighbours; a ragged tile checks each
+//   16-byte chunk (vector side) or element (scalar side).
+// - rows_to_column: a flat copy, one 16-byte vector a thread over as many
+//   blocks of COLUMN_THREADS as it takes. A scalar head takes both
+//   pointers to 16 bytes when they are aligned alike (else every element
+//   is a scalar, one a thread), and a scalar tail ends it. On the card this
+//   one-shot grid keeps pace with cudaMemcpyAsync (what torch.clone runs),
+//   where a grid of 8 blocks an SM striding over its share did not
+//   (PERF.md).
+// - Both read and write with the streaming cache hint (ld/st.global.cs,
+//   evict first): each byte is touched once. Element offsets are 64-bit.
+// - The others are the plainest kernel per construct. The products give
+//   each warp one 16 x 8 tile of the output and walk K in steps of 16 with
+//   mma.sync.m16n8k16, loading each fragment's bf16 values straight from
+//   device memory (the inputs are a^T-major, so no shared memory transpose
+//   is needed). An output with fewer than 16 rows is computed as its
+//   transpose, b^T . a, and written back transposed, as the histogram
+//   kernel lays out its one-hots.
+// The two copies' entries compute their geometry here (transpose_geometry,
+// column_geometry); zbpe_lowering_plan reports it without a launch, and
+// ops/kernels/lowering.py states it again for the CPU tests
+// (transpose_plan, column_plan).
 //
 // Each entry runs on the caller's stream and returns cudaGetLastError().
 
@@ -33,7 +64,15 @@
 
 namespace {
 
-constexpr int TILE = 32;
+constexpr int TILE = 64;          // transpose: one TILE x TILE int32 tile a block
+constexpr int TILE_THREADS = 256;
+constexpr int VEC = 4;            // int32 in a 16-byte vector
+constexpr int CHUNKS = TILE / VEC;                         // vectors in a tile row
+constexpr int TILE_STEPS = TILE * CHUNKS / TILE_THREADS;   // vectors a thread moves, each way
+constexpr int COLUMN_THREADS = 256;  // rows_to_column: one element or vector a thread
+constexpr long long GRID_X_MAX = 2147483647;
+static_assert(TILE_STEPS * (TILE_THREADS / 32) == TILE / VEC * (CHUNKS / 8),
+              "a warp's store step covers 4 tile columns x 8 chunks");
 constexpr unsigned ONE_LO = 0x3f80u, ONE_HI = 0x3f800000u;  // bf16 1.0 in a half
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned a2,
@@ -45,25 +84,77 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__global__ void column_kernel(const int* __restrict__ src, int* __restrict__ dst, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) dst[i] = src[i];
+// dst[0:n] = src[0:n], n = head + VEC * vecs + tail: head scalars, vecs
+// 16-byte vectors from src + head (16-byte aligned, as is dst + head), tail
+// scalars. Thread i of the grid copies unit i of each part.
+__global__ void __launch_bounds__(COLUMN_THREADS)
+column_kernel(const int* __restrict__ src, int* __restrict__ dst, long long head, long long vecs,
+              long long tail) {
+  const long long i = (long long)blockIdx.x * COLUMN_THREADS + threadIdx.x;
+  if (i < head) __stcs(dst + i, __ldcs(src + i));
+  if (i < vecs)
+    __stcs(reinterpret_cast<int4*>(dst + head) + i,
+           __ldcs(reinterpret_cast<const int4*>(src + head) + i));
+  const long long t0 = head + vecs * VEC;
+  if (i < tail) __stcs(dst + t0 + i, __ldcs(src + t0 + i));
 }
 
-// dst[c][r] = src[r][c], through a padded 32 x 32 tile in shared memory.
-__global__ void transpose_kernel(const int* __restrict__ src, int* __restrict__ dst, int rows,
-                                 int cols) {
-  __shared__ int tile[TILE][TILE + 1];
-  const int c = blockIdx.x * TILE + threadIdx.x;
-  for (int y = threadIdx.y; y < TILE; y += blockDim.y) {
-    const int r = blockIdx.y * TILE + y;
-    if (r < rows && c < cols) tile[y][threadIdx.x] = src[r * cols + c];
+// Where element (r, c) of a tile sits in its shared-memory row: 16-byte
+// chunk c / 4 moves to chunk (c / 4) ^ ((r / 4) % 8).
+__device__ __forceinline__ int swz(int r, int c) {
+  return (((c >> 2) ^ ((r >> 2) & 7)) << 2) | (c & 3);
+}
+
+// dst[c][r] = src[r][c] (rows x cols int32) on the tile of this block: tile
+// row blockIdx.x / tiles_c, tile column blockIdx.x % tiles_c. LOAD_VEC: the
+// rows of src start on 16 bytes; STORE_VEC: those of dst do.
+template <bool LOAD_VEC, bool STORE_VEC>
+__global__ void __launch_bounds__(TILE_THREADS)
+transpose_kernel(const int* __restrict__ src, int* __restrict__ dst, long long rows,
+                 long long cols, int tiles_c) {
+  __shared__ __align__(16) int tile[TILE][TILE];
+  const long long r0 = (long long)(blockIdx.x / tiles_c) * TILE;
+  const long long c0 = (long long)(blockIdx.x % tiles_c) * TILE;
+  const int t = threadIdx.x;
+  if (LOAD_VEC) {  // step s: tile row i / CHUNKS, its chunk i % CHUNKS
+    int4 v[TILE_STEPS];
+#pragma unroll
+    for (int s = 0; s < TILE_STEPS; ++s) {
+      const int i = s * TILE_THREADS + t, r = i / CHUNKS, c = i % CHUNKS * VEC;
+      if (r0 + r < rows && c0 + c < cols)
+        v[s] = __ldcs(reinterpret_cast<const int4*>(src + (r0 + r) * cols + c0 + c));
+    }
+#pragma unroll
+    for (int s = 0; s < TILE_STEPS; ++s) {
+      const int i = s * TILE_THREADS + t, r = i / CHUNKS, c = i % CHUNKS * VEC;
+      if (r0 + r < rows && c0 + c < cols) *reinterpret_cast<int4*>(&tile[r][swz(r, c)]) = v[s];
+    }
+  } else {  // a warp reads 32 neighbours of one tile row
+    for (int i = t; i < TILE * TILE; i += TILE_THREADS) {
+      const int r = i / TILE, c = i % TILE;
+      if (r0 + r < rows && c0 + c < cols)
+        tile[r][swz(r, c)] = __ldcs(src + (r0 + r) * cols + c0 + c);
+    }
   }
   __syncthreads();
-  const int r = blockIdx.y * TILE + threadIdx.x;
-  for (int y = threadIdx.y; y < TILE; y += blockDim.y) {
-    const int cc = blockIdx.x * TILE + y;
-    if (cc < cols && r < rows) dst[cc * rows + r] = tile[threadIdx.x][y];
+  if (STORE_VEC) {  // warp task: tile columns 4 (task / 2) + lane / 8, chunk 8 (task % 2) + lane % 8
+    const int lane = t & 31;
+#pragma unroll
+    for (int s = 0; s < TILE_STEPS; ++s) {
+      const int task = s * (TILE_THREADS / 32) + (t >> 5);
+      const int c = (task >> 1) * VEC + (lane >> 3), r = ((task & 1) * 8 + (lane & 7)) * VEC;
+      if (c0 + c < cols && r0 + r < rows) {
+        const int4 o = make_int4(tile[r][swz(r, c)], tile[r + 1][swz(r + 1, c)],
+                                 tile[r + 2][swz(r + 2, c)], tile[r + 3][swz(r + 3, c)]);
+        __stcs(reinterpret_cast<int4*>(dst + (c0 + c) * rows + r0 + r), o);
+      }
+    }
+  } else {  // a warp writes 32 neighbours of one output row
+    for (int i = t; i < TILE * TILE; i += TILE_THREADS) {
+      const int c = i / TILE, r = i % TILE;
+      if (c0 + c < cols && r0 + r < rows)
+        __stcs(dst + (c0 + c) * rows + r0 + r, tile[r][swz(r, c)]);
+    }
   }
 }
 
@@ -133,24 +224,90 @@ onehot_kernel(const int* __restrict__ t, float* __restrict__ out, int n) {
 
 unsigned blocks(long long n, int per) { return (unsigned)((n + per - 1) / per); }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+struct TransposeGeometry {
+  int tiles_c, grid;
+  bool load_vec, store_vec;
+};
+
+// false when the shape is empty or has more tiles than grid.x holds.
+bool transpose_geometry(const void* src, const void* dst, long long rows, long long cols,
+                        TransposeGeometry* g) {
+  if (rows <= 0 || cols <= 0) return false;
+  const long long tiles_c = (cols + TILE - 1) / TILE, tiles = (rows + TILE - 1) / TILE * tiles_c;
+  if (tiles > GRID_X_MAX) return false;
+  *g = {(int)tiles_c, (int)tiles, aligned16(src) && cols % VEC == 0,
+        aligned16(dst) && rows % VEC == 0};
+  return true;
+}
+
+struct ColumnGeometry {
+  long long head, vecs, tail;
+  int grid;
+};
+
+// The split of n elements into head, 16-byte vectors and tail: a head that
+// takes both pointers to 16 bytes when they are aligned alike, else all n
+// in the head; a grid of one block per COLUMN_THREADS units of the longest
+// part. false when n is not positive or the grid does not fit grid.x.
+bool column_geometry(const void* src, const void* dst, long long n, ColumnGeometry* g) {
+  if (n <= 0) return false;
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src), d = reinterpret_cast<uintptr_t>(dst);
+  g->head = ((s - d) & 15) ? n : ((16 - (s & 15)) & 15) / 4;
+  if (g->head > n) g->head = n;
+  g->vecs = (n - g->head) / VEC;
+  g->tail = n - g->head - g->vecs * VEC;
+  long long units = g->head > g->vecs ? g->head : g->vecs;
+  if (g->tail > units) units = g->tail;
+  const long long grid = (units + COLUMN_THREADS - 1) / COLUMN_THREADS;
+  if (grid > GRID_X_MAX) return false;
+  g->grid = (int)grid;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
 // dst[n][1] = src, read flat: the (rows, cols) -> (rows * cols, 1) reshape.
-int zbpe_rows_to_column(const int* src, int* dst, int n, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  column_kernel<<<blocks(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(src, dst, n);
+int zbpe_rows_to_column(const int* src, int* dst, long long n, void* stream) {
+  ColumnGeometry g;
+  if (!column_geometry(src, dst, n, &g)) return (int)cudaErrorInvalidValue;
+  column_kernel<<<g.grid, COLUMN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      src, dst, g.head, g.vecs, g.tail);
   return (int)cudaGetLastError();
 }
 
 // dst[cols][rows] = src[rows][cols]^T (int32).
-int zbpe_transpose(const int* src, int* dst, int rows, int cols, void* stream) {
-  if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks(cols, TILE), blocks(rows, TILE)), block(TILE, 8);
-  transpose_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(src, dst, rows,
-                                                                          cols);
+int zbpe_transpose(const int* src, int* dst, long long rows, long long cols, void* stream) {
+  TransposeGeometry g;
+  if (!transpose_geometry(src, dst, rows, cols, &g)) return (int)cudaErrorInvalidValue;
+  const auto kernel = g.load_vec ? (g.store_vec ? transpose_kernel<true, true>
+                                                : transpose_kernel<true, false>)
+                                 : (g.store_vec ? transpose_kernel<false, true>
+                                                : transpose_kernel<false, false>);
+  kernel<<<g.grid, TILE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(src, dst, rows, cols,
+                                                                         g.tiles_c);
   return (int)cudaGetLastError();
+}
+
+// The geometry that zbpe_rows_to_column (kind 0: a = n; out = head, vecs,
+// tail, grid) or zbpe_transpose (kind 1: a = rows, b = cols; out =
+// tiles_c, grid, load_vec, store_vec) launches for these pointers, without
+// a launch.
+int zbpe_lowering_plan(int kind, const void* src, const void* dst, long long a, long long b,
+                       long long* out) {
+  ColumnGeometry c;
+  TransposeGeometry t;
+  if (kind == 0 && column_geometry(src, dst, a, &c)) {
+    out[0] = c.head, out[1] = c.vecs, out[2] = c.tail, out[3] = c.grid;
+  } else if (kind == 1 && transpose_geometry(src, dst, a, b, &t)) {
+    out[0] = t.tiles_c, out[1] = t.grid, out[2] = t.load_vec, out[3] = t.store_vec;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 // dst[r][c] = c % m + src[r][c] (int32).

@@ -5,6 +5,7 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 a hash of the source and the flags, so an edited source is rebuilt) and
 loaded with ctypes. Nothing is built when a module is imported: the first
 launch builds, so the package imports on machines without the CUDA toolkit.
+:class:`Entry` launches a C entry with what a launch needs and no more.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -27,7 +30,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -44,18 +47,19 @@ def nvcc_path() -> str:
     )
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists. The
-    compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
-    kept beside the library as ``.log``. Returns the library path."""
+def build(name: str, flags: tuple[str, ...] = NVCC_FLAGS) -> Path:
+    """Compile ``csrc/<name>.cu`` with ``flags`` unless an up-to-date
+    library exists. The compiler's output (``-Xptxas -v``: registers, shared
+    memory, spills) is kept beside the library as ``.log``. Returns the
+    library path."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -67,9 +71,44 @@ def build(name: str) -> Path:
     return out
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first call."""
+def library(name: str, flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with ``flags``, built
+    on first call."""
     with _lock:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(build(name)))
-        return _libs[name]
+        if (name, flags) not in _libs:
+            _libs[name, flags] = ctypes.CDLL(str(build(name, flags)))
+        return _libs[name, flags]
+
+
+class Entry:
+    """A launch entry of ``csrc/<name>.cu``, called as ``entry(index,
+    *args)``: it launches on the current stream of CUDA device ``index``,
+    with ``args`` converted by ``argtypes`` and the stream appended, and
+    raises RuntimeError when the entry returns a CUDA error.
+
+    The library is built and the ctypes function resolved (argtypes set) at
+    the first call, and kept. Per call it reads the device's raw stream
+    handle, building no Stream object, and enters a device context only
+    when ``index`` is not the current device."""
+
+    __slots__ = ("name", "symbol", "argtypes", "fn")
+
+    def __init__(self, name: str, symbol: str, argtypes):
+        self.name, self.symbol, self.argtypes, self.fn = name, symbol, tuple(argtypes), None
+
+    def resolve(self):
+        fn = getattr(library(self.name), self.symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+        self.fn = fn
+        return fn
+
+    def __call__(self, index: int, *args) -> None:
+        fn = self.fn if self.fn is not None else self.resolve()
+        if index == torch._C._cuda_getDevice():
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        if rc:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")

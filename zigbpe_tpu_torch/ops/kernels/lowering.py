@@ -20,19 +20,79 @@ these catch nothing: a kernel that does not build raises, and one that is
 wrong fails its twin check.
 
 A CPU tensor runs the twin; a CUDA tensor launches the kernel or raises.
-Each wrapper's ``launches`` counts its kernel launches.
+Each wrapper's ``launches`` counts its kernel launches, and each launches
+through :class:`_build.Entry`.
+
+:func:`transpose_plan` and :func:`column_plan` state the launch geometry of
+``transpose`` and ``rows_to_column`` as the C entries compute it
+(``transpose_geometry`` and ``column_geometry`` in ``csrc/lowering.cu``,
+whose constants of the same names these are). The wrappers do not call
+them: the C side computes its geometry from the shape and the pointers, so
+that a call pays for no Python arithmetic. The CPU tests replay the plans
+element by element, and ``chip_smoke.py`` holds them equal to the C side's
+(:func:`device_plan`) on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
+from typing import NamedTuple
 
 import torch
 
 from . import LAYOUT, _build
 
 HI_ROWS = 8  # the hi one-hot of onehot_dot: t >> 7 in [0, 8)
+
+TILE = 64             # transpose: one TILE x TILE int32 tile a block ...
+TILE_THREADS = 256    # ... of this many threads
+VEC = 4               # int32 in a 16-byte vector
+COLUMN_THREADS = 256  # rows_to_column: one element or vector a thread
+GRID_X_MAX = 2**31 - 1
+
+
+class TransposePlan(NamedTuple):
+    tiles_c: int      # tiles along a row of x: block b is tile (b // tiles_c, b % tiles_c)
+    grid: int         # blocks on grid.x, one a tile
+    load_vec: bool    # x's rows start on 16 bytes: 16-byte loads, else scalars
+    store_vec: bool   # the output's rows do: 16-byte stores, else scalars
+
+
+class ColumnPlan(NamedTuple):
+    head: int   # scalars first (all n when the pointers are not 16-byte aligned alike)
+    vecs: int   # then 16-byte vectors
+    tail: int   # then scalars
+    grid: int   # blocks; thread i of the grid copies unit i of each part
+
+
+def transpose_plan(rows: int, cols: int, src_ptr: int, dst_ptr: int) -> TransposePlan:
+    """The launch of ``transpose`` on a (rows, cols) int32 array at
+    ``src_ptr`` into ``dst_ptr``. Refuses an empty shape and one with more
+    tiles than grid.x holds (offsets are 64-bit: nothing else limits it)."""
+    if rows < 1 or cols < 1:
+        raise ValueError(f"transpose needs a non-empty shape, got ({rows}, {cols})")
+    tiles_c = -(-cols // TILE)
+    grid = -(-rows // TILE) * tiles_c
+    if grid > GRID_X_MAX:
+        raise ValueError(f"({rows}, {cols}) needs {grid} tiles of {TILE} x {TILE}, more than "
+                         f"grid.x holds ({GRID_X_MAX})")
+    return TransposePlan(tiles_c, grid, src_ptr % 16 == 0 and cols % VEC == 0,
+                         dst_ptr % 16 == 0 and rows % VEC == 0)
+
+
+def column_plan(n: int, src_ptr: int, dst_ptr: int) -> ColumnPlan:
+    """The launch of ``rows_to_column`` on ``n`` int32 at ``src_ptr`` into
+    ``dst_ptr``. Refuses n < 1 and a part longer than grid.x's threads."""
+    if n < 1:
+        raise ValueError(f"rows_to_column copies at least one element, got {n}")
+    head = n if (src_ptr - dst_ptr) % 16 else min(n, -src_ptr % 16 // 4)
+    vecs = (n - head) // VEC
+    tail = n - head - vecs * VEC
+    grid = -(-max(head, vecs, tail) // COLUMN_THREADS)
+    if grid > GRID_X_MAX:
+        raise ValueError(f"{n} elements need {grid} blocks of {COLUMN_THREADS}, more than "
+                         f"grid.x holds ({GRID_X_MAX})")
+    return ColumnPlan(head, vecs, tail, grid)
 
 
 def _check_int(x: torch.Tensor, dims: int = 2) -> None:
@@ -107,35 +167,47 @@ def _cuda(x: torch.Tensor, name: str) -> None:
                          f"tensor on {x.device}")
 
 
-def _run(entry: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        rc = getattr(_library(), entry)(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ROWS_TO_COLUMN = _build.Entry("lowering", "zbpe_rows_to_column", (P, P, LL))
+_TRANSPOSE = _build.Entry("lowering", "zbpe_transpose", (P, P, LL, LL))
+_IOTA_MOD_ADD = _build.Entry("lowering", "zbpe_iota_mod_add", (P, P, I, I, I))
+_DOT_TN = _build.Entry("lowering", "zbpe_dot_tn", (P, P, P, I, I, I, I, I))
+_ONEHOT_DOT = _build.Entry("lowering", "zbpe_onehot_dot", (P, P, I))
+
+
+def _int_on_card(x: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor that ``name``'s kernel takes, False for a CPU
+    tensor (its twin runs); raises on any other. One call, so that a
+    launch pays for few Python calls."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return False
+        _cuda(x, name)
+    if x.dtype != torch.int32 or x.dim() != 2 or not x.numel():
+        _check_int(x)
+    return True
 
 
 def rows_to_column(x: torch.Tensor) -> torch.Tensor:
     """``x`` (rows, cols) int32 read flat into one column (rows * cols, 1)."""
-    if x.device.type == "cpu":
+    if not _int_on_card(x, "rows_to_column"):
         return rows_to_column_reference(x)
-    _cuda(x, "rows_to_column")
-    _check_int(x)
     x = x.contiguous()
-    out = torch.empty((x.numel(), 1), dtype=torch.int32, device=x.device)
-    _run("zbpe_rows_to_column", x.device, x.data_ptr(), out.data_ptr(), x.numel())
+    n = x.numel()
+    out = x.new_empty((n, 1))
+    _ROWS_TO_COLUMN(x.get_device(), x.data_ptr(), out.data_ptr(), n)
     rows_to_column.launches += 1
     return out
 
 
 def transpose(x: torch.Tensor) -> torch.Tensor:
     """``x`` (rows, cols) int32 transposed to (cols, rows)."""
-    if x.device.type == "cpu":
+    if not _int_on_card(x, "transpose"):
         return transpose_reference(x)
-    _cuda(x, "transpose")
-    _check_int(x)
     x = x.contiguous()
-    out = torch.empty((x.shape[1], x.shape[0]), dtype=torch.int32, device=x.device)
-    _run("zbpe_transpose", x.device, x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1])
+    rows, cols = x.shape
+    out = x.new_empty((cols, rows))
+    _TRANSPOSE(x.get_device(), x.data_ptr(), out.data_ptr(), rows, cols)
     transpose.launches += 1
     return out
 
@@ -150,8 +222,7 @@ def iota_mod_add(x: torch.Tensor, m: int) -> torch.Tensor:
         raise ValueError(f"m must be >= 1, got {m}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    _run("zbpe_iota_mod_add", x.device, x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-         m)
+    _IOTA_MOD_ADD(x.get_device(), x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], m)
     iota_mod_add.launches += 1
     return out
 
@@ -172,7 +243,7 @@ def dot_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         args = (b.data_ptr(), a.data_ptr(), out.data_ptr(), K, N, M, 1, N)
     else:
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), K, M, N, N, 1)
-    _run("zbpe_dot_tn", a.device, *args)
+    _DOT_TN(a.get_device(), *args)
     dot_tn.launches += 1
     return out
 
@@ -185,7 +256,7 @@ def onehot_dot(t: torch.Tensor) -> torch.Tensor:
     _check_tokens(t)
     t = t.contiguous()
     out = torch.empty((HI_ROWS, LAYOUT), dtype=torch.float32, device=t.device)
-    _run("zbpe_onehot_dot", t.device, t.data_ptr(), out.data_ptr(), t.shape[0])
+    _ONEHOT_DOT(t.get_device(), t.data_ptr(), out.data_ptr(), t.shape[0])
     onehot_dot.launches += 1
     return out
 
@@ -195,18 +266,17 @@ for _fn in KERNELS:
     _fn.launches = 0
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.library("lowering")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    for name, argtypes in (
-        ("zbpe_rows_to_column", [P, P, I, P]),
-        ("zbpe_transpose", [P, P, I, I, P]),
-        ("zbpe_iota_mod_add", [P, P, I, I, I, P]),
-        ("zbpe_dot_tn", [P, P, P, I, I, I, I, I, P]),
-        ("zbpe_onehot_dot", [P, P, I, P]),
-    ):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return lib
+def device_plan(kernel, src_ptr: int, dst_ptr: int, *shape: int) -> tuple[int, ...]:
+    """The geometry that the C entry of ``rows_to_column`` (shape: n) or
+    ``transpose`` (shape: rows, cols) launches for these pointers on the
+    current device, as ``zbpe_lowering_plan`` reports it: the fields of
+    :class:`ColumnPlan` or :class:`TransposePlan`."""
+    fn = _build.library("lowering").zbpe_lowering_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [I, P, P, LL, LL, P]
+    out = (LL * 4)()
+    kind = {rows_to_column: 0, transpose: 1}[kernel]
+    rc = fn(kind, src_ptr, dst_ptr, shape[0], shape[-1], out)
+    if rc:
+        raise ValueError(f"zbpe_lowering_plan refused {kernel.__name__} {shape}: CUDA error {rc}")
+    return tuple(out)

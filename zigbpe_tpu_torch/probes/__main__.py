@@ -1,11 +1,11 @@
-"""python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering
+"""python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering|launch
 [--device cuda]"""
 
 from __future__ import annotations
 
 import argparse
 
-from . import alu16, budget, floor, hist, lowering, pipeline
+from . import alu16, budget, floor, hist, launch, lowering, pipeline
 
 
 def main(argv=None) -> int:
@@ -29,6 +29,8 @@ def main(argv=None) -> int:
         s.add_argument("--tokens", type=int, default=1 << 25, help="tokens per array")
         s.add_argument("--passes", type=int, default=32, help="chained passes per run")
     sub.add_parser("lowering", help="the TPU build's lowering checks against their twins")
+    la = sub.add_parser("launch", help="where a kernel wrapper's host time goes, piece by piece")
+    la.add_argument("--calls", type=int, default=10_000, help="calls per timed span")
     args = parser.parse_args(argv)
     if args.probe == "budget":
         budget.run(args.device, nbytes=args.mb << 20, np_passes=args.np_passes, runs=args.runs)
@@ -40,8 +42,10 @@ def main(argv=None) -> int:
         alu16.run(args.device, n_tokens=args.tokens, passes=args.passes, runs=args.runs)
     elif args.probe == "hist":
         hist.run(args.device, n_tokens=args.tokens, passes=args.passes, runs=args.runs)
-    else:
+    elif args.probe == "lowering":
         lowering.run(args.device)
+    else:
+        launch.run(args.device, calls=args.calls)
     return 0
 
 
