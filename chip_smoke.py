@@ -21,25 +21,32 @@ Phases, each of which must pass:
              CUDA events;
 3. probes  — the measurement probes' kernels against their twins (run on
              the card): copy_blocks, copy_carry and copy_peek for int32 and
-             int16 at every block size of the floor probe, at 2^25 tokens of
-             seeded data with negatives and on zeros; every variant of
+             int16 at R = 8 and every block size of the floor probe, at 2^25
+             tokens of seeded data with negatives and on zeros, and their
+             launch geometry against the Python plan; every variant of
              merge_pass_ablated at 1 tile, many tiles, 2^25 tokens and a run
              of a spanning every tile, with an a != b and an a == b table
              (tokens and hits / length equal, the min_kept <= 1 decision
              agreeing); opmix at 2^25 tokens, int32 and int16, reps 0/4/16,
-             on seeded data and zeros; onehot_hist at 2^25 tokens for every
-             V, S and mode of the hist probe (and S = 8 with skip), on the
-             probe's tokens and on tokens with negatives, tokens past V and
-             hit-free subchunks; the lowering kernels at the shapes of
+             on seeded data and zeros; onehot_hist's launch geometry against
+             the Python plan, and the kernel at 2^25 tokens for every V, S
+             and mode of the hist probe (and S = 8 with skip), on the probe's
+             tokens, on tokens with negatives, tokens past V and hit-free
+             subchunks, on all zeros (every token a hit, one bin) and all
+             ones (no hit, one bin); the lowering kernels at the shapes of
              scripts/probe_mosaic_ops.py on its values and seeded ones (all
              exact but dot_tn on normal values, rtol 1e-4, atol 1e-3), and
              rows_to_column and transpose also at ragged, misaligned, 2^25
              and tall (2^22, 1) shapes, each launch's geometry against the
              Python plan. Each is timed against its twin (and one PyTorch
              call where one computes the same function) in spans of 20
-             calls; the two copies in turns with that call, at the script's
-             shape (also device time from a CUDA graph and host enqueue time)
-             and at 2^25 int32, beside their bytes bound. Then
+             calls; in turns (kernel, call, call, kernel) with that call:
+             copy_blocks with clone at 2^25 int16 and int32, copy_carry and
+             copy_peek with copy_blocks, onehot_hist with bincount and on all
+             zeros with the probe's tokens, and rows_to_column and transpose
+             at the script's shape (also device time from a CUDA graph and
+             host enqueue time) and at 2^25 int32, beside their bytes bound.
+             Then
              ``python -m zigbpe_tpu_torch.probes`` floor, pipeline (both
              tables), budget, alu16, hist and lowering run at full size and
              print their tables;
@@ -416,15 +423,41 @@ def hist_edge_tokens(torch, rows: int):
     return t
 
 
+HIST_PLAN_CASES = (  # (rows, R, S, vocab, density_mod, skip): the probe's, ragged, extremes
+    (262144, 256, 32, 4352, 7, False), (262144, 256, 8, 512, 7, True),
+    (262144, 256, 32, 1280, 0, True), (262080, 96, 96, 4608, 7, True), (77, 77, 1, 1, 3, True),
+    (8, 8, 8, 129, 1, False), (24, 24, 8, 4608, 2, True))
+
+
+def check_hist_plans() -> None:
+    """The geometry zbpe_hist launches (zbpe_hist_plan) equals hist_plan at
+    the card's SM count and occupancy, for every instantiation."""
+    from zigbpe_tpu_torch.ops.kernels import hist as kh
+
+    pers = set()
+    for args in HIST_PLAN_CASES:
+        shown = kh.device_plan(*args)
+        want = kh.hist_plan(*args, shown.sms, shown.blocks_per_sm)
+        require(shown == want, f"hist geometry for {args}: C side {shown} != plan {want}")
+        pers.add((shown.per, args[-1]))
+    require(len(pers) == 3, f"the hist plan cases miss an instantiation: {sorted(pers)}")
+    log(f"  onehot_hist: C geometry == Python plan on {len(HIST_PLAN_CASES)} cases "
+        f"(3 instantiations; {shown.sms} SMs)")
+
+
 def check_hist(torch, rows: int, card: str) -> dict:
     from zigbpe_tpu_torch.ops.kernels import hist as kh
     from zigbpe_tpu_torch.probes import hist as hp
 
+    check_hist_plans()
     worst = 0
     x = hp.tokens(rows * 128, torch.device("cuda"))
     edge = hist_edge_tokens(torch, rows)
+    zeros = torch.zeros_like(x)  # every token 0, a hit: one bin
+    ones = torch.ones_like(x)    # every token 1, no hit: one bin
     cases = hp.CASES + (("S= 8 skip-on dense", 8, hp.DENSITY, True),)
-    for label, data in (("probe tokens", x), ("edge tokens", edge)):
+    for label, data in (("probe tokens", x), ("edge tokens", edge), ("all zeros", zeros),
+                        ("all ones", ones)):
         for V in hp.VOCABS:
             for name, S, dmod, skip in cases:
                 (out, h), (tw_out, tw_h) = (kh.onehot_hist(data, 256, V, S, dmod, skip),
@@ -439,18 +472,27 @@ def check_hist(torch, rows: int, card: str) -> dict:
     require(not bool(kh.kept_subchunks(edge, 256, 32, hp.DENSITY, True).all()),
             "the edge tokens have no hit-free subchunk")
     V, S = 4352, 32
-    ms = per_call_ms(lambda: kh.onehot_hist(x, 256, V, S, hp.DENSITY, False), x.device)
-    plain = per_call_ms(lambda: kh.onehot_hist_reference(x, 256, V, S, hp.DENSITY, False),
-                        x.device)
     span = kh.vocab_rows(V) * 128
     bins = (x + (x % hp.DENSITY == 0).to(torch.int32) * span).view(-1).long()
-    library = per_call_ms(lambda: torch.bincount(bins, minlength=2 * span), x.device)
+    ks, ls = in_turns(lambda: kh.onehot_hist(x, 256, V, S, hp.DENSITY, False),
+                      lambda: torch.bincount(bins, minlength=2 * span), x.device)
+    ms, library = statistics.fmean(ks), statistics.fmean(ls)
+    plain = per_call_ms(lambda: kh.onehot_hist_reference(x, 256, V, S, hp.DENSITY, False),
+                        x.device)
+    zs, os_ = in_turns(lambda: kh.onehot_hist(zeros, 256, V, S, hp.DENSITY, False),
+                       lambda: kh.onehot_hist(x, 256, V, S, hp.DENSITY, False), x.device)
     bound, by = hp.bound(x, V)
     mma = hp.onehot_mma_ms(x, 256, V, S, hp.DENSITY, False)
     log(f"[probes] onehot_hist at 2^25 tokens, R = 256, V = {V}, S = {S}, dense: kernel "
-        f"{ms:.4f} ms, plain PyTorch twin {plain:.4f} ms, torch.bincount of the bins (no copy) "
-        f"{library:.4f} ms, bound {bound:.4f} ms ({by}), the one-hot products at peak bf16 "
-        f"{mma:.4f} ms; {card}")
+        f"{ms:.4f} ms ({ks[0]:.4f}, {ks[1]:.4f}), plain PyTorch twin {plain:.4f} ms, "
+        f"torch.bincount of the bins (no copy) {library:.4f} ms ({ls[0]:.4f}, {ls[1]:.4f}), "
+        f"bound {bound:.4f} ms ({by}), {bound / ms:.3f} of it; the TPU's one-hot products "
+        f"on the tensor cores at peak bf16 {mma:.4f} ms; target kernel <= bincount: "
+        f"{'held' if ms <= library else 'missed'}; {card}")
+    log(f"[probes] onehot_hist all zeros (every token a hit, one bin) at the same shape, in "
+        f"turns with the probe's tokens: {statistics.fmean(zs):.4f} ms ({zs[0]:.4f}, "
+        f"{zs[1]:.4f}) against {statistics.fmean(os_):.4f} ms ({os_[0]:.4f}, {os_[1]:.4f}), "
+        f"{bound / statistics.fmean(zs):.3f} of the bound; {card}")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library}
 
@@ -655,6 +697,70 @@ def check_lowering(torch, card: str) -> dict:
     return out
 
 
+COPY_PLAN_CASES = ((262144, 256), (262144, 8), (77, 7), (1, 1), (24, 8), (1025, 25),
+                   (4096, 2048))  # (rows, R): the probes', ragged, R = 8
+
+
+def check_copy_plans() -> None:
+    """The geometry each copy entry launches (zbpe_copy_plan) equals
+    copy_plan, int32 and int16, on every case it takes."""
+    from zigbpe_tpu_torch.ops.kernels import copy as kc
+
+    n = 0
+    for rows, R in COPY_PLAN_CASES:
+        for elem in (4, 2):
+            for name in COPY_KERNELS:
+                if name == "copy_peek" and (rows % 8 or R % 8):
+                    continue
+                shown, want = kc.device_plan(rows, R, elem, name), kc.copy_plan(rows, R, elem, name)
+                require(shown == want, f"{name} geometry rows={rows} R={R} elem={elem}: C side "
+                        f"{shown} != plan {want}")
+                n += 1
+    log(f"  copy kernels: C geometry == Python plan on {n} cases")
+
+
+def time_copies(torch, rows: int, card: str) -> dict:
+    """copy_blocks in turns with clone (kernel, call, call, kernel), and
+    copy_carry and copy_peek in turns with copy_blocks, at 2^25 tokens of
+    int16 and then int32 (whose row is returned), R = 256, beside the bytes
+    bound and the design's targets; each twin timed alone."""
+    from zigbpe_tpu_torch.ops.kernels import copy as kc
+
+    out = {}
+    for dtype in (torch.int16, torch.int32):
+        x = torch.zeros((rows, 128), dtype=dtype, device="cuda")
+        bound, _ = bound_ms(2 * x.numel() * x.element_size())
+        ks, cs = in_turns(lambda: kc.copy_blocks(x, 256), x.clone, x.device)
+        blocks, clone = statistics.fmean(ks), statistics.fmean(cs)
+        log(f"[probes] copy_blocks {dtype} at 2^25 tokens, R = 256, in turns (kernel, clone, "
+            f"clone, kernel): kernel {blocks:.4f} ms ({ks[0]:.4f}, {ks[1]:.4f}), torch.clone "
+            f"{clone:.4f} ms ({cs[0]:.4f}, {cs[1]:.4f}), kernel / clone {blocks / clone:.4f}, "
+            f"bound {bound:.4f} ms, {bound / blocks:.3f} of it; target within 2% of clone: "
+            f"{'held' if blocks <= 1.02 * clone else 'missed'}; {card}")
+        out["copy_blocks"] = {"ms": blocks, "library_ms": clone,
+                              "plain_ms": per_call_ms(lambda: kc.copy_blocks_reference(x, 256),
+                                                      x.device)}
+        word = torch.empty(1, dtype=torch.int32, device="cuda")
+        for name in ("copy_carry", "copy_peek"):
+            fn = getattr(kc, name)
+            ns, bs = in_turns(lambda: fn(x, 256), lambda: kc.copy_blocks(x, 256), x.device)
+            ms, base = statistics.fmean(ns), statistics.fmean(bs)
+            log(f"[probes] {name} {dtype} at 2^25 tokens, R = 256, in turns with copy_blocks: "
+                f"{ms:.4f} ms ({ns[0]:.4f}, {ns[1]:.4f}) against {base:.4f} ms ({bs[0]:.4f}, "
+                f"{bs[1]:.4f}), ratio {ms / base:.4f}; target within 3% of copy_blocks: "
+                f"{'held' if ms <= 1.03 * base else 'missed'}; {card}")
+            twin = getattr(kc, f"{name}_reference")
+            out[name] = {"ms": ms, "library_ms": None,
+                         "plain_ms": per_call_ms(lambda: twin(x, 256), x.device)}
+        ns, zs = in_turns(lambda: kc.copy_carry(x, 256),
+                          lambda: (word.zero_(), kc.copy_blocks(x, 256)), x.device)
+        log(f"[probes] copy_carry {dtype} in turns with a 4-byte zero_() and copy_blocks (the "
+            f"count word's zeroing as its own stream operation): {statistics.fmean(ns):.4f} ms "
+            f"({ns[0]:.4f}, {ns[1]:.4f}) against {statistics.fmean(zs):.4f} ms ({zs[0]:.4f}, "
+            f"{zs[1]:.4f}); {card}")
+    return out
+
+
 def phase_probes(torch, group, card):
     """The probe kernels against their twins (on the card), then the six
     probes at full size with every probe kernel's count from zero. Returns
@@ -673,7 +779,7 @@ def phase_probes(torch, group, card):
             host[::8, 0] = rng.integers(1 << 30, (1 << 31) - 1, rows // 8)
         data = torch.from_numpy(host).cuda()
         for label, x in (("seeded", data), ("zeros", torch.zeros_like(data))):
-            for R in floor.BLOCK_ROWS:
+            for R in (8, *floor.BLOCK_ROWS):
                 for name in COPY_KERNELS:
                     got = getattr(kc, name)(x, R)
                     want = getattr(kc, f"{name}_reference")(x, R)
@@ -683,8 +789,10 @@ def phase_probes(torch, group, card):
                     worst[name] = max(worst[name], err)
                     require(err == 0 and got[0].dtype == x.dtype,
                             f"{name} != twin: {x.dtype} R={R} {label}, max_abs_err {err}")
-        log(f"  copy kernels == twins: {data.dtype}, R in {floor.BLOCK_ROWS}, seeded and zeros")
+        log(f"  copy kernels == twins: {data.dtype}, R in {(8, *floor.BLOCK_ROWS)}, seeded "
+            f"and zeros")
     del data, x, got, want
+    check_copy_plans()
 
     aa = commonest_repeat()
     cases = [(f"cap={cap}", padded(tiled_corpus(cap - int(rng.integers(1, 300))), cap))
@@ -709,15 +817,7 @@ def phase_probes(torch, group, card):
         f"({time.perf_counter() - t0:.1f} s)")
 
     # kernel against twin at the probes' shapes, both on the card
-    x = torch.zeros((rows, 128), dtype=torch.int32, device="cuda")
-    stream = bound_ms(2 * x.numel() * 4)  # one read and one write of 2^25 int32 tokens
-    rows_out = {}
-    for name in COPY_KERNELS:
-        fn, twin = getattr(kc, name), getattr(kc, f"{name}_reference")
-        rows_out[name] = {"ms": per_call_ms(lambda: fn(x, 256), x.device),
-                          "plain_ms": per_call_ms(lambda: twin(x, 256), x.device),
-                          "library_ms": None}
-    rows_out["copy_blocks"]["library_ms"] = per_call_ms(x.clone, x.device)
+    rows_out = time_copies(torch, rows, card)
     src = torch.from_numpy(padded(tiled_corpus((1 << 25) - 100), 1 << 25)).cuda()
     t = torch.tensor([group[0]], dtype=torch.int32, device="cuda")
     rows_out["merge_pass_ablated"] = {
@@ -725,14 +825,14 @@ def phase_probes(torch, group, card):
         "plain_ms": time_pass(lambda w, tb: km.merge_pass_ablated_reference(w, tb, "full"),
                               src, t, 5),
         "library_ms": None}
+    stream = bound_ms(2 * 4 * rows * 128)  # one read and one write of 2^25 int32 tokens
     for name, row in rows_out.items():
         row.update(max_abs_err=worst[name], bound_ms=stream[0], bound_by=stream[1])
-        shape = f"full pass of {group[0]}" if name == "merge_pass_ablated" else "R = 256"
-        lib = "" if row["library_ms"] is None else f", torch.clone {row['library_ms']:.4f} ms"
-        log(f"[probes] {name} at 2^25 int32 tokens ({shape}): kernel {row['ms']:.4f} ms, "
-            f"plain PyTorch twin {row['plain_ms']:.4f} ms{lib} (CUDA events, mean per call); "
-            f"{card}")
-    del x, src
+    row = rows_out["merge_pass_ablated"]
+    log(f"[probes] merge_pass_ablated at 2^25 int32 tokens (full pass of {group[0]}): kernel "
+        f"{row['ms']:.4f} ms, plain PyTorch twin {row['plain_ms']:.4f} ms (CUDA events, mean "
+        f"per call); {card}")
+    del src
 
     t1 = time.perf_counter()
     rows_out["opmix"] = check_opmix(torch, rows, card)
@@ -750,7 +850,7 @@ def phase_probes(torch, group, card):
     pipeline.run("cuda", loop=True)
     budget.run("cuda")
     alu16.run("cuda")
-    hist.run("cuda", passes=8)  # 12 cases of up to 4 ms a pass: 8 keep the phase short
+    hist.run("cuda")
     lowering.run("cuda")
     return {name: {"launches": wrappers[name].launches, **rows_out[name]}
             for name in PROBE_KERNELS}
@@ -1076,7 +1176,7 @@ def phase_serving(torch, card, build_s):
     full_runs = time_runs(lambda: ke.encode_rows_grouped(rows, gt, gl), rows.device, 3)
     ms, plain, full = map(statistics.fmean, (ms_runs, plain_runs, full_runs))
     mbps = SERVE_BYTES / 1e6 / (full / 1e3)
-    smem = ke._library().zbpe_encode_smem_bytes(SERVE_ROW, P, 32)
+    smem = ke.smem_bytes(SERVE_ROW, P, 32)
     log(f"[serving] encode kernel, 1024 rows x {SERVE_ROW} tokens, P={P}: kernel "
         f"{ms:.4f} ms (mean of 5: {', '.join(f'{t:.4f}' for t in ms_runs)}), plain "
         f"PyTorch twin {plain:.4f} ms (mean of 2: "

@@ -313,3 +313,126 @@ def test_onehot_hist_rejects_bad_arguments(shape, dtype, R, V, S, dmod, match):
 def test_lowering_kernels_reject_bad_arguments(call, match):
     with pytest.raises(ValueError, match=match):
         call()
+
+
+# ------------------------------------------------- the launch path on Entry
+
+import ctypes  # noqa: E402
+
+from zigbpe_tpu_torch.ops.kernels import _build  # noqa: E402
+
+ENTRY_MODULES = {"copy": kcopy, "encode": kencode, "hist": khist, "merge": kmerge,
+                 "opmix": kopmix}
+CTYPES = {"long long": ctypes.c_longlong, "int": ctypes.c_int}
+
+
+def _c_entries(name: str) -> dict:
+    """{symbol: ctypes of its parameters} of the int-returning entries of
+    csrc/<name>.cu: pointers as c_void_p, ``long long`` and ``int``."""
+    src = (REPO / "zigbpe_tpu_torch" / "csrc" / f"{name}.cu").read_text()
+    out = {}
+    for symbol, params in re.findall(r"\nint (zbpe_\w+)\(([^)]*)\)", src):
+        types = [re.sub(r"\s*\w+$", "", p.strip()).replace("const ", "") for p in params.split(",")]
+        out[symbol] = tuple(ctypes.c_void_p if t.endswith("*") else CTYPES[t] for t in types)
+    return out
+
+
+def _entries(module) -> list:
+    return [v for v in vars(module).values() if isinstance(v, _build.Entry)]
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_MODULES))
+def test_wrapper_modules_launch_through_entry(name):
+    """No wrapper module enters a device context or builds a Stream per
+    launch: each launches through _build.Entry, whose argument types are
+    its C entry's (the stream last)."""
+    src = (REPO / "zigbpe_tpu_torch" / "ops" / "kernels" / f"{name}.py").read_text()
+    for piece in ("torch.cuda.device", "current_stream", "cuda_stream", "getattr(lib"):
+        assert piece not in src, piece
+    entries = _entries(ENTRY_MODULES[name])
+    declared = _c_entries(name)
+    assert entries and all(e.name == name for e in entries)
+    for e in entries:
+        assert (*e.argtypes, ctypes.c_void_p) == declared[e.symbol], e.symbol
+
+
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _meta(shape, dtype=torch.int32):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+def _wrapper_calls(device):
+    """(name, wrapper, call) of every wrapper of the five modules, on
+    inputs on ``device`` at small shapes."""
+    t = lambda shape, dtype=torch.int32: torch.zeros(shape, dtype=dtype, device=device)  # noqa
+    table = torch.tensor([[97, 98, 256]], dtype=torch.int32, device=device)
+    gt, gl = _grouped([[97, 98, 256]])
+    return [
+        ("copy_blocks", kcopy.copy_blocks, lambda: kcopy.copy_blocks(t((16, 128)), 8)),
+        ("copy_carry", kcopy.copy_carry, lambda: kcopy.copy_carry(t((16, 128), torch.int16), 8)),
+        ("copy_peek", kcopy.copy_peek, lambda: kcopy.copy_peek(t((16, 128)), 8)),
+        ("onehot_hist", khist.onehot_hist,
+         lambda: khist.onehot_hist(t((16, 128)), 8, 512, 8, 7, True)),
+        ("opmix", kopmix.opmix, lambda: kopmix.opmix(t((16, 128), torch.int16), 8, 4)),
+        ("merge_pass_multi", kmerge.merge_pass_multi,
+         lambda: kmerge.merge_pass_multi(t((256,)), table)),
+        ("merge_pass_ablated", kmerge.merge_pass_ablated,
+         lambda: kmerge.merge_pass_ablated(t((256,)), table, "nokills")),
+        ("encode_rows_grouped", kencode.encode_rows_grouped,
+         lambda: kencode.encode_rows_grouped(t((2, 1024)), gt.to(device), gl.to(device))),
+    ]
+
+
+def _stub_entries(monkeypatch) -> _Recorder:
+    """Every Entry of the five modules records its calls instead of
+    launching; the current device is -1, a CPU tensor's get_device()."""
+    rec = _Recorder()
+    for module in ENTRY_MODULES.values():
+        for e in _entries(module):
+            monkeypatch.setattr(e, "fn", lambda *a, e=e: rec((e.symbol, e.argtypes), *a))
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: -1, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 4242, raising=False)
+    monkeypatch.setattr(kmerge, "_work_ints", lambda n: 9 * (n // 4096 + 1))
+    return rec
+
+
+@pytest.mark.parametrize("index", range(8))
+def test_a_meta_tensor_raises_before_any_launch(monkeypatch, index):
+    rec = _stub_entries(monkeypatch)
+    name, wrapper, call = _wrapper_calls("meta")[index]
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+    assert wrapper.launches == before and rec.calls == [], name
+
+
+@pytest.mark.parametrize("index", range(8))
+def test_wrappers_pass_the_argument_types_their_c_entry_declares(monkeypatch, index):
+    """With the launch stubbed and a CPU tensor taken for a card's, each
+    wrapper makes one launch whose arguments ctypes converts to what the C
+    entry declares: pointers, 64-bit sizes and 32-bit ints in range, the
+    raw stream last; and its counter counts it."""
+    rec = _stub_entries(monkeypatch)
+    monkeypatch.setattr(_build, "on_card", lambda x, name: True)
+    name, wrapper, call = _wrapper_calls("cpu")[index]
+    before = wrapper.launches
+    call()
+    assert wrapper.launches == before + 1, name
+    assert len(rec.calls) == 1
+    (symbol, argtypes), *args = rec.calls[0]
+    declared = _c_entries(symbol.split("_")[1])[symbol]  # zbpe_<source>_...
+    assert (*argtypes, ctypes.c_void_p) == declared and len(args) == len(declared)
+    assert args[-1] == 4242  # the raw stream of the current device
+    for t, v in zip(declared, args):
+        assert type(v) is int, (name, t, v)
+        lo, hi = {ctypes.c_int: (-2**31, 2**31), ctypes.c_longlong: (-2**63, 2**63),
+                  ctypes.c_void_p: (1, 2**64)}[t]
+        assert lo <= v < hi, (name, t, v)

@@ -1,6 +1,8 @@
 """Command-line interface of the PyTorch port: train / encode / decode /
 demo, with the same flags and output formats as ``zigbpe_tpu.cli`` plus
-``--device`` (default ``cuda``).
+``--device`` (default ``cuda``). The tokenizer is built on ``--device`` only
+when the chosen backend reaches it; the host backends run on the CPU, so
+they need no card.
 
     python -m zigbpe_tpu_torch.cli demo --corpus taylorswift.txt
 """
@@ -11,7 +13,7 @@ import argparse
 import sys
 import time
 
-from .models.basic_tokenizer import BasicTokenizer
+from .models.basic_tokenizer import _DEVICE_ENCODE_THRESHOLD, BasicTokenizer
 from .utils import fileio
 
 # main.zig:25 probe string, reproduced by `demo`
@@ -26,11 +28,17 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
 
 
+def _device(args, backend: str) -> str:
+    """``--device`` when ``backend`` (auto already resolved) runs on it,
+    else the CPU."""
+    return args.device if backend == "device" else "cpu"
+
+
 def cmd_train(args) -> int:
     data = fileio.read_corpus(args.corpus)
-    tok = BasicTokenizer(device=args.device)
-    t0 = time.time()
     backend = "device" if args.backend == "auto" else args.backend
+    tok = BasicTokenizer(device=_device(args, backend))
+    t0 = time.time()
     kwargs = {"chunk_rounds": args.chunk_rounds} if backend == "device" else {}
     tok.train(data, args.vocab, verbose=args.verbose, backend=backend, **kwargs)
     wall = time.time() - t0
@@ -46,9 +54,12 @@ def cmd_train(args) -> int:
 
 
 def cmd_encode(args) -> int:
-    tok = BasicTokenizer.from_merges_file(args.merges, device=args.device)
     data = fileio.read_file(args.file) if args.file else args.text.encode("utf-8")
-    ids = tok.encode(data, backend=args.backend)
+    backend = args.backend
+    if backend == "auto":  # BasicTokenizer.encode's rule
+        backend = "device" if len(data) >= _DEVICE_ENCODE_THRESHOLD else "host"
+    tok = BasicTokenizer.from_merges_file(args.merges, device=_device(args, backend))
+    ids = tok.encode(data, backend=backend)
     # main.zig:28-30 prints ids space-separated
     print(" ".join(str(i) for i in ids))
     return 0
@@ -69,9 +80,9 @@ def cmd_demo(args) -> int:
     """Reproduce the reference demo (main.zig:8-43): read corpus ->
     train(vocab) -> serialize merges -> encode probe -> decode -> timing."""
     data = fileio.read_file(args.corpus)
-    tok = BasicTokenizer(device=args.device)
-    t0 = time.time()
     backend = "device" if args.backend == "auto" else args.backend
+    tok = BasicTokenizer(device=_device(args, backend))
+    t0 = time.time()
     tok.train(data, args.vocab, backend=backend)
     tok.save_merges(args.out)
     ids = tok.encode(PROBE)

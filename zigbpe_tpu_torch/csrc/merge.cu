@@ -700,7 +700,7 @@ int zbpe_merge_pass(int* tokens, long long n, const int* table, int K, int* work
 // The same pass with the pieces of mask ``variant`` switched off (one of the
 // variants in the header; any other mask is refused).
 int zbpe_merge_pass_ablated(int* tokens, long long n, const int* table, int K, int* work,
-                            int* stats, void* stream, int variant) {
+                            int* stats, int variant, void* stream) {
   if (bad_args(n, K)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((unsigned)variant) {

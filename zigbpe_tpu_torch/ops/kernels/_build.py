@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 a hash of the source and the flags, so an edited source is rebuilt) and
 loaded with ctypes. Nothing is built when a module is imported: the first
 launch builds, so the package imports on machines without the CUDA toolkit.
-:class:`Entry` launches a C entry with what a launch needs and no more.
+:class:`Entry` launches a C entry with what a launch needs and no more, and
+:func:`on_card` picks kernel or twin by the tensor's device.
 """
 
 from __future__ import annotations
@@ -78,6 +79,18 @@ def library(name: str, flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
         if (name, flags) not in _libs:
             _libs[name, flags] = ctypes.CDLL(str(build(name, flags)))
         return _libs[name, flags]
+
+
+def on_card(x: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (kernel ``name`` launches), False for a CPU
+    tensor (its plain twin runs); ValueError for a tensor on any other
+    device, so that nothing falls back to the twin."""
+    if x.is_cuda:
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{name} runs on CUDA tensors (or its twin on CPU ones); got a tensor "
+                     f"on {x.device}")
 
 
 class Entry:

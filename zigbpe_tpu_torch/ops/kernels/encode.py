@@ -24,7 +24,6 @@ unchanged.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -249,7 +248,7 @@ def encode_rows_grouped(tokens: torch.Tensor, gtable: torch.Tensor,
     kernel ``csrc/encode.cu`` (built at first launch) or raises; any other
     device raises. ``encode_rows_grouped.launches`` counts kernel launches.
     """
-    if tokens.device.type == "cpu":
+    if not _build.on_card(tokens, "the encode kernel"):
         return encode_rows_grouped_reference(tokens, gtable, glens)
     return _launch(tokens, gtable, glens)
 
@@ -293,26 +292,21 @@ def _check_shapes(tokens: torch.Tensor, gtable: torch.Tensor,
                          f"tokens on {tokens.device}")
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.library("encode")
-    lib.zbpe_encode_smem_bytes.restype = ctypes.c_longlong
-    lib.zbpe_encode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.zbpe_encode_rows.restype = ctypes.c_int
-    lib.zbpe_encode_rows.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    return lib
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ENCODE_ROWS = _build.Entry("encode", "zbpe_encode_rows", (P, P, P, LL, I, P, P, I, I))
+
+
+def smem_bytes(row_length: int, groups: int, cap: int) -> int:
+    """Dynamic shared memory of one block of the encode kernel, in bytes,
+    for rows of ``row_length`` tokens and ``groups`` groups of ``cap``
+    members, as the C side (``zbpe_encode_smem_bytes``) computes it."""
+    fn = _build.library("encode").zbpe_encode_smem_bytes
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [I, I, I]
+    return fn(row_length, groups, cap)
 
 
 def _launch(tokens: torch.Tensor, gtable: torch.Tensor, glens: torch.Tensor):
-    if not tokens.is_cuda:
-        raise ValueError(
-            f"the encode kernel runs on CUDA tensors (or the twin on CPU ones); "
-            f"got a tensor on {tokens.device}"
-        )
     _check_shapes(tokens, gtable, glens)
     B, L = tokens.shape
     P, cap = gtable.shape[:2]
@@ -322,16 +316,9 @@ def _launch(tokens: torch.Tensor, gtable: torch.Tensor, glens: torch.Tensor):
         raise ValueError("tokens, gtable and glens must be contiguous")
     if tokens.data_ptr() % 16:
         raise ValueError("tokens must be 16-byte aligned")
-    lib = _library()
     out = torch.empty_like(tokens)
-    lengths = torch.empty(B, dtype=torch.int32, device=tokens.device)
-    with torch.cuda.device(tokens.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.zbpe_encode_rows(
-            tokens.data_ptr(), out.data_ptr(), lengths.data_ptr(), B, L,
-            gtable.data_ptr(), glens.data_ptr(), P, cap, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"encode kernel launch failed: CUDA error {rc}")
+    lengths = tokens.new_empty(B)
+    _ENCODE_ROWS(tokens.get_device(), tokens.data_ptr(), out.data_ptr(), lengths.data_ptr(), B,
+                 L, gtable.data_ptr(), glens.data_ptr(), P, cap)
     encode_rows_grouped.launches += 1
     return out, lengths

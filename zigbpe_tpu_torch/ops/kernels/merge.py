@@ -169,7 +169,7 @@ def merge_pass_multi(tokens: torch.Tensor, table: torch.Tensor):
     kernel ``csrc/merge.cu`` (built at first launch) or raises; any other
     device raises. ``merge_pass_multi.launches`` counts kernel launches.
     """
-    if tokens.device.type == "cpu":
+    if not _build.on_card(tokens, "the merge kernel"):
         return merge_pass_multi_reference(tokens, table)
     out = _launch(tokens, table, None)
     merge_pass_multi.launches += 1
@@ -186,7 +186,7 @@ def merge_pass_ablated(tokens: torch.Tensor, table: torch.Tensor, variant: str):
     :func:`merge_pass_ablated_reference`; a CUDA tensor launches the kernel
     or raises. ``merge_pass_ablated.launches`` counts kernel launches."""
     mask = _variant_mask(variant)
-    if tokens.device.type == "cpu":
+    if not _build.on_card(tokens, "the merge kernel"):
         return merge_pass_ablated_reference(tokens, table, variant)
     out = _launch(tokens, table, mask)
     merge_pass_ablated.launches += 1
@@ -223,46 +223,35 @@ def _check_shapes(tokens: torch.Tensor, table: torch.Tensor) -> None:
         raise ValueError(f"table on {table.device}, tokens on {tokens.device}")
 
 
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PASS = _build.Entry("merge", "zbpe_merge_pass", (P, LL, P, I, P, P))
+_PASS_ABLATED = _build.Entry("merge", "zbpe_merge_pass_ablated", (P, LL, P, I, P, P, I))
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.library("merge")
-    lib.zbpe_merge_work_ints.restype = ctypes.c_longlong
-    lib.zbpe_merge_work_ints.argtypes = [ctypes.c_longlong]
-    lib.zbpe_merge_pass.restype = ctypes.c_int
-    lib.zbpe_merge_pass.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.zbpe_merge_pass_ablated.restype = ctypes.c_int
-    lib.zbpe_merge_pass_ablated.argtypes = [*lib.zbpe_merge_pass.argtypes, ctypes.c_int]
-    return lib
+def _work_ints(n: int) -> int:
+    """int32s of scratch a pass over ``n`` tokens needs, as the C side
+    (``zbpe_merge_work_ints``) computes it; asked once per capacity."""
+    fn = _build.library("merge").zbpe_merge_work_ints
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_longlong]
+    return fn(n)
 
 
 def _launch(tokens: torch.Tensor, table: torch.Tensor, mask):
     """One pass on CUDA tensors: the production entry for ``mask`` None,
     else the ablated entry with that mask."""
-    if not tokens.is_cuda:
-        raise ValueError(
-            f"the merge kernel runs on CUDA tensors (or the twin on CPU ones); "
-            f"got a tensor on {tokens.device}"
-        )
     _check_shapes(tokens, table)
     if not (tokens.is_contiguous() and table.is_contiguous()):
         raise ValueError("tokens and table must be contiguous")
     if tokens.data_ptr() % 16:
         raise ValueError("tokens must be 16-byte aligned")
-    lib = _library()
     n, K = tokens.shape[0], table.shape[0]
-    work = torch.empty(lib.zbpe_merge_work_ints(n), dtype=torch.int32,
-                       device=tokens.device)
-    stats = torch.empty(K + 2, dtype=torch.int32, device=tokens.device)
-    with torch.cuda.device(tokens.device):
-        args = (tokens.data_ptr(), n, table.data_ptr(), K, work.data_ptr(),
-                stats.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if mask is None:
-            rc = lib.zbpe_merge_pass(*args)
-        else:
-            rc = lib.zbpe_merge_pass_ablated(*args, mask)
-    if rc != 0:
-        raise RuntimeError(f"merge kernel launch failed: CUDA error {rc}")
+    work = tokens.new_empty(_work_ints(n))
+    stats = tokens.new_empty(K + 2)
+    args = (tokens.data_ptr(), n, table.data_ptr(), K, work.data_ptr(), stats.data_ptr())
+    if mask is None:
+        _PASS(tokens.get_device(), *args)
+    else:
+        _PASS_ABLATED(tokens.get_device(), *args, mask)
     return tokens, stats

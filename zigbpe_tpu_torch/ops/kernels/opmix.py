@@ -18,13 +18,13 @@ The -1 at each block's end is the Pallas ``shift_left1`` fill
 it); the twin takes any ``reps >= 0``.
 
 A CPU tensor runs the twin; a CUDA tensor launches the kernel or raises.
-``opmix.launches`` counts kernel launches.
+``opmix.launches`` counts kernel launches, each through
+:class:`_build.Entry`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -32,6 +32,9 @@ from . import LAYOUT, _build
 
 DTYPES = {torch.int32: 4, torch.int16: 2}
 REPS = (0, 4, 16)
+_OPMIX = _build.Entry("opmix", "zbpe_opmix", (ctypes.c_void_p, ctypes.c_void_p,
+                                              ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_int))
 
 
 def _check(x: torch.Tensor, rows_per_block: int) -> None:
@@ -62,34 +65,18 @@ def opmix_reference(x: torch.Tensor, rows_per_block: int, reps: int) -> torch.Te
 def opmix(x: torch.Tensor, rows_per_block: int, reps: int) -> torch.Tensor:
     """The op mix of ``x`` over ``reps`` reps in blocks of ``rows_per_block``
     rows (module docstring)."""
-    if x.device.type == "cpu":
+    if not _build.on_card(x, "opmix"):
         return opmix_reference(x, rows_per_block, reps)
-    if not x.is_cuda:
-        raise ValueError(f"opmix runs on CUDA tensors (or its twin on CPU ones); got a "
-                         f"tensor on {x.device}")
     _check(x, rows_per_block)
     if reps not in REPS:
         raise ValueError(f"reps must be one of {REPS} on the card, got {reps}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous and 16-byte aligned")
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _library().zbpe_opmix(x.data_ptr(), out.data_ptr(), x.shape[0], rows_per_block,
-                                   DTYPES[x.dtype], reps,
-                                   torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"zbpe_opmix launch failed: CUDA error {rc}")
+    _OPMIX(x.get_device(), x.data_ptr(), out.data_ptr(), x.shape[0], rows_per_block,
+           DTYPES[x.dtype], reps)
     opmix.launches += 1
     return out
 
 
 opmix.launches = 0
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.library("opmix")
-    lib.zbpe_opmix.restype = ctypes.c_int
-    lib.zbpe_opmix.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    return lib

@@ -1,7 +1,7 @@
 """Measurement probes of the merge pass: how a pass spends its time on the
 card.
 
-    python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering
+    python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering|launch
         [--device cuda]
 
 Ports of the TPU measurement scripts, each on its own kernels:
@@ -16,10 +16,12 @@ Ports of the TPU measurement scripts, each on its own kernels:
 - ``alu16`` (``scripts/probe_alu16.py``): the merge kernel's op mix
   (``opmix``) in int32 against packed int16;
 - ``hist`` (``scripts/probe_hist.py``): the blocked copy with two masked
-  one-hot histograms on the tensor cores (``onehot_hist``), against the
-  plain copy;
+  histograms kept exact in the pass (``onehot_hist``), against the plain
+  copy;
 - ``lowering`` (``scripts/probe_mosaic_ops.py``): each construct the TPU
   build checked (``ops.kernels.lowering``), held against its twin.
+- ``launch``: where a kernel wrapper's host time goes, piece by piece, and
+  each wrapper's whole call (card only).
 
 On a CUDA device every row is timed with CUDA events: one warm-up run, then
 the median of ``runs`` runs with their range. On the CPU the probes run the

@@ -1,4 +1,5 @@
-"""What a one-hot histogram on the tensor cores adds to a blocked copy.
+"""What exact counts kept inside a blocked copy cost: the building block
+of exact pair-count maintenance.
 
 Port of ``scripts/probe_hist.py``. On a (rows, 128) int32 array of seeded
 tokens in [0, 500), ``passes`` chained calls of ``onehot_hist`` (each call
@@ -10,9 +11,11 @@ subchunk skipped). The plain blocked copy (``copy_blocks``) at the same R
 is the baseline. Each row reports ms per pass and the ms it adds over the
 copy; on the card also its bound (the bytes of the function: one read and
 one write of the array and one write of the histogram), the share of that
-bound the pass reaches, and what the one-hot design's products cost on the
-tensor cores (2 * 128 * 2 Vh bf16 flops per token of every subchunk that
-runs), which is the design's cost and not the function's.
+bound the pass reaches, and, beside it, what the TPU's formulation of the
+counts as bf16 one-hot products would take on the card's tensor cores
+(2 * 128 * 2 Vh flops per token of every subchunk that runs, at peak).
+The card's kernel counts with integer adds in shared memory and does no
+products.
 """
 
 from __future__ import annotations
@@ -53,8 +56,9 @@ def bound(x: torch.Tensor, vocab: int) -> tuple[float, str]:
 
 def onehot_mma_ms(x: torch.Tensor, rows_per_block: int, vocab: int, sub_rows: int,
                   density_mod: int, skip: bool) -> float:
-    """The ms the one-hot products of the subchunks this data runs take at
-    the card's peak bf16 rate: the cost of the design, beside its bound."""
+    """The ms the TPU's one-hot products of the subchunks this data runs
+    would take on the card's tensor cores at peak bf16: what that
+    formulation costs here, beside the function's bound."""
     kept = int(khist.kept_subchunks(x, rows_per_block, sub_rows, density_mod, skip).sum())
     flops = 2 * LAYOUT * 2 * khist.vocab_rows(vocab) * kept * sub_rows * LAYOUT
     return flops / PEAK_BF16_FLOPS * 1e3
@@ -67,7 +71,7 @@ def run(device="cuda", n_tokens: int = 1 << 25, block_rows: int = 256, vocabs=VO
     dev = resolve_device(device)
     x = tokens(n_tokens, dev)
     print(device_line(dev))
-    print(f"hist: {n_tokens} int32 tokens in [0, 500), R={block_rows}, bf16 one-hots, "
+    print(f"hist: {n_tokens} int32 tokens in [0, 500), R={block_rows}, exact counts, "
           f"{passes} chained passes per run, median [min-max] of {runs} runs")
 
     def chain(fn):
@@ -97,7 +101,7 @@ def run(device="cuda", n_tokens: int = 1 << 25, block_rows: int = 256, vocabs=VO
                 row["bound_share"] = row["bound_ms"] / ms
                 row["mma_ms"] = onehot_mma_ms(x, block_rows, V, S, dmod, skip)
                 line += (f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                         f"{row['bound_share']:.3f} of it; one-hot products "
+                         f"{row['bound_share']:.3f} of it; the TPU's one-hot products "
                          f"{row['mma_ms']:.4f} ms at peak bf16")
             print(line)
             out.append(row)

@@ -12,8 +12,11 @@ with the ways to allocate its output; the launch entry called bare (with
 n = 0 it returns before any CUDA call: the ctypes cost alone), and the same
 entry from a library built with ``-cudart shared``; the launch helper
 (``_build.Entry``) and the launch path it replaced (a device context, a
-Stream object and ``getattr`` on the library); the wrappers whole; and the
-two PyTorch calls that compute the same functions. Runs on a CUDA device
+Stream object and ``getattr`` on the library); the wrappers whole; the
+two PyTorch calls that compute the same functions; and a whole call of
+every other wrapper, each through ``_build.Entry``, at a small shape: the
+merge pass on 4096 tokens, the encode kernel on one row of 1024, and the
+copy, op mix and histogram kernels on (32, 128). Runs on a CUDA device
 only: there is no launch to time on the host.
 """
 
@@ -27,7 +30,12 @@ import torch
 
 from ..ops.core import resolve_device
 from ..ops.kernels import _build
+from ..ops.kernels import copy as kcopy
+from ..ops.kernels import encode as kencode
+from ..ops.kernels import hist as khist
 from ..ops.kernels import lowering as klow
+from ..ops.kernels import merge as kmerge
+from ..ops.kernels import opmix as kopmix
 from . import device_line
 
 SHAPE = (32, 128)  # probe_mosaic_ops.py's x
@@ -100,6 +108,28 @@ def pieces(dev: torch.device) -> list:
         ("transpose(x), whole wrapper", lambda: klow.transpose(x)),
         ("x.view(-1, 1).clone()", lambda: x.view(-1, 1).clone()),
         ("x.t().contiguous()", lambda: x.t().contiguous()),
+        *wrappers(dev),
+    ]
+
+
+def wrappers(dev: torch.device) -> list:
+    """(name, function of no arguments) of a whole call of each wrapper
+    outside ``lowering``, at a small shape."""
+    x = (torch.arange(SHAPE[0] * SHAPE[1], dtype=torch.int32, device=dev) % 500).view(SHAPE)
+    tokens = x.view(-1).clone()  # rewritten in place by each pass: (97, 98) never hits
+    table = torch.tensor([[97, 98, 256]], dtype=torch.int32, device=dev)
+    row = x.view(-1)[:1024].view(1, 1024)
+    gt, gl = (t.to(dev) for t in map(torch.from_numpy, kencode.schedule_merges([[97, 98, 256]])))
+    return [
+        ("merge_pass_multi(4096 tokens), whole wrapper",
+         lambda: kmerge.merge_pass_multi(tokens, table)),
+        ("encode_rows_grouped((1, 1024)), whole wrapper",
+         lambda: kencode.encode_rows_grouped(row, gt, gl)),
+        ("copy_blocks(x, 32), whole wrapper", lambda: kcopy.copy_blocks(x, 32)),
+        ("copy_peek(x, 32), whole wrapper", lambda: kcopy.copy_peek(x, 32)),
+        ("opmix(x, 32, 4), whole wrapper", lambda: kopmix.opmix(x, 32, 4)),
+        ("onehot_hist(x, 32, 512, 8, 7, skip), whole wrapper",
+         lambda: khist.onehot_hist(x, 32, 512, 8, 7, True)),
     ]
 
 
