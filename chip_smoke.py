@@ -11,14 +11,20 @@ Phases, each of which must pass:
              production kernels (the merge kernel's mask-0 instantiation)
              and the largest register count and any spill of the ablated
              merge instantiations;
-2. kernel  — the merge kernel against its plain PyTorch twin (run on a CPU
-             copy) at 1 tile, many tiles and 2^25 tokens: K = 1 with a != b,
-             K = 1 with a == b and runs spanning many tiles, K = 4 groups
-             from a real training run, disabled slots, a second pass on the
-             row-local output and a draining degenerate corpus. Tokens and
-             hit counts / new length must be equal and the min_kept <= 1
-             decision must agree. Then both are timed at 2^25 tokens with
-             CUDA events;
+2. kernel  — the merge kernel (one launch a pass on a persistent grid)
+             against its plain PyTorch twin (run on a CPU copy) at 1 tile,
+             many tiles, a tile count that is no multiple of the grid (with a
+             ragged last tile) and 2^25 tokens: K = 1 with a != b, K = 1 with
+             a == b and runs spanning many tiles, K = 2, 3 and 4 groups from
+             a real training run, disabled slots, a second pass on the
+             row-local output and a draining degenerate corpus; the 2^25 K = 4
+             and a == b passes 50 times each from one input (races in the
+             look-back or the head read); two capacities in turns (each its
+             own work array). Tokens and hit counts / new length must be
+             equal and the min_kept <= 1 decision must agree;
+   timing  — the K = 4, K = 1 a == b and K = 1 a != b passes at 2^25 tokens
+             in turns with the kernel's copy variant and clone, and the twin,
+             with CUDA events;
 3. probes  — the measurement probes' kernels against their twins (run on
              the card): copy_blocks, copy_carry and copy_peek for int32 and
              int16 at R = 8 and every block size of the floor probe, at 2^25
@@ -26,6 +32,7 @@ Phases, each of which must pass:
              launch geometry against the Python plan; every variant of
              merge_pass_ablated at 1 tile, many tiles, 2^25 tokens and a run
              of a spanning every tile, with an a != b and an a == b table
+             and 2- and 4-slot groups
              (tokens and hits / length equal, the min_kept <= 1 decision
              agreeing); opmix at 2^25 tokens, int32 and int16, reps 0/4/16,
              on seeded data and zeros; onehot_hist's launch geometry against
@@ -105,7 +112,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from zigbpe_tpu_torch.probes import bound_ms, time_runs
+from zigbpe_tpu_torch.probes import (INT32_LANES_PER_SM, SMS, bound_ms, int32_bound_ms,
+                                      max_sm_clock_hz, smem_bound_ms, time_runs)
 from zigbpe_tpu_torch.probes.budget import tiled_corpus
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -228,9 +236,10 @@ def phase_build():
         ablated = []  # (registers, spill bytes, kernel)
         for entry in path.with_suffix(".log").read_text().split("Compiling entry function")[1:]:
             fn = re.search(r"[a-z_]+_kernel(I\w*?EE)?", entry)[0]
-            # merge.cu's kernels are templates on an ablation mask: the
-            # production pass is mask 0 (ILj0E), the others are the probes'
-            if "ILj" in fn and "ILj0E" not in fn:
+            # merge.cu's kernel is a template on the slots it tests and an
+            # ablation mask: the production pass is mask 0 (Lj0E), the
+            # others are the probes'
+            if re.search(r"merge_kernelILi\dELj[1-9]\d*E", fn):
                 ablated.append((int(re.search(r"Used (\d+) registers", entry)[1]),
                                 int(re.search(r"(\d+) bytes spill stores", entry)[1]), fn))
             else:
@@ -244,6 +253,50 @@ def phase_build():
         log(f"[build] ok: {path.relative_to(ROOT)} in {secs:.2f} s")
     log(f"[build] all {len(KERNELS)} kernels built in {time.perf_counter() - t0:.2f} s")
     return {name: secs for name, (_, secs) in zip(KERNELS, built)}
+
+
+def merge_agrees(torch, got, gstats, want, wstats, K: int) -> bool:
+    """Tokens, hits and length equal; the min_kept <= 1 decision agrees."""
+    gs, ws = gstats.cpu(), wstats.cpu()
+    return (torch.equal(got, want) and gs[: K + 1].tolist() == ws[: K + 1].tolist()
+            and bool((gs[K + 1] <= 1) == (ws[K + 1] <= 1)))
+
+
+def repeat_check(torch, km, label: str, arr: np.ndarray, table, reps: int) -> None:
+    """``reps`` passes of the kernel from the same input, each equal to the
+    twin's pass: a race in the look-back or the head read would show as one
+    pass that differs."""
+    t = torch.tensor(table, dtype=torch.int32).reshape(-1, 3)
+    want, wstats = km.merge_pass_multi_reference(torch.from_numpy(arr.copy()), t)
+    src, want, t = (x.cuda() for x in (torch.from_numpy(arr), want, t))
+    work = torch.empty_like(src)
+    for r in range(reps):
+        work.copy_(src)
+        _, gstats = km.merge_pass_multi(work, t)
+        require(merge_agrees(torch, work, gstats, want, wstats, t.shape[0]),
+                f"{label} pass {r} of {reps} from one input != twin: gpu {gstats.tolist()} "
+                f"twin {wstats.tolist()}")
+    log(f"  {label} n={arr.size}: {reps} passes from one input, each == twin "
+        f"(stats {wstats.tolist()})")
+
+
+def alternate_check(torch, km, caps, group, aa: int, rounds: int = 3) -> None:
+    """Passes at two capacities in turns on one device, each equal to the
+    twin: each capacity keeps its own work array between its passes."""
+    rng = np.random.default_rng(11)
+    inputs = {cap: padded(tiled_corpus(cap - int(rng.integers(1, 300))), cap) for cap in caps}
+    for _ in range(rounds):
+        for cap, arr in inputs.items():
+            for table in (group, [(aa, aa, 256)]):
+                t = torch.tensor(table, dtype=torch.int32)
+                want, wstats = km.merge_pass_multi_reference(torch.from_numpy(arr.copy()), t)
+                got, gstats = km.merge_pass_multi(torch.from_numpy(arr).cuda(), t.cuda())
+                require(merge_agrees(torch, got.cpu(), gstats, want, wstats, t.shape[0]),
+                        f"alternating capacities: cap {cap} table {table} != twin")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    require(all((dev, cap) in km._work for cap in caps), "a capacity lost its work array")
+    log(f"  capacities {list(caps)} in turns, {rounds} rounds x 2 tables: each pass == twin, "
+        f"one work array each")
 
 
 def phase_kernel(torch, group, group2):
@@ -277,13 +330,28 @@ def phase_kernel(torch, group, group2):
     rng = np.random.default_rng(0)
     aa = commonest_repeat()
     disabled = [group[0], [-2, -2, -2], [-2, -2, -2], group[1]]
-    for cap in (4096, 128 * 1000, 1 << 25):
+    # a tile count that is no multiple of the persistent grid, and a ragged
+    # last tile
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grids = {K: km.launch_grid(1 << 25, K) for K in range(1, 5)}
+    grid = grids[4]
+    odd_cap = (2 * grid + grid // 2 + 7) * 4096 - 5 * 128
+    log("  persistent grid at 2^25 tokens: " + ", ".join(
+        f"K={K} {b} blocks ({b / sms:g} an SM)" for K, b in grids.items())
+        + f"; odd capacity {odd_cap} = {odd_cap / 4096:.2f} tiles")
+    for cap in (4096, 128 * 1000, odd_cap, 1 << 25):
         arr = padded(tiled_corpus(cap - int(rng.integers(1, 300))), cap)
         check(f"K=1 a!=b cap={cap}", arr, [group[0]])
         check(f"K=1 a==b cap={cap}", arr, [(aa, aa, 256)])
+        check(f"K=2 real group cap={cap}", arr, group[:2])
+        check(f"K=3 real group cap={cap}", arr, group[:3])
         mid, _ = check(f"K=4 real group cap={cap}", arr, group)
         check(f"K=4 disabled slots cap={cap}", arr, disabled)
         check(f"K=4 next group, 2nd pass cap={cap}", mid, group2)
+    big = padded(tiled_corpus((1 << 25) - 77), 1 << 25)
+    for label, table in (("K=4", group), ("K=1 a==b", [(aa, aa, 256)])):
+        repeat_check(torch, km, label, big, table, 50)
+    alternate_check(torch, km, (4096 * 3 + 128 * 7, 128 * 1000), group, aa)
     run = padded(b"a" * ((1 << 20) - 3) + b"xy", 1 << 20)
     for r in range(3):  # the a-run spans every tile; each pass halves it
         t = 97 if r == 0 else 255 + r
@@ -310,18 +378,32 @@ def time_pass(fn, src, table, reps):
                                       setup=lambda: work.copy_(src)))
 
 
-def phase_timing(torch, group):
+def phase_timing(torch, group, card):
+    """Each pass at 2^25 tokens (K = 4 real group, K = 1 a == b, K = 1
+    a != b) in turns with the kernel's ``copy`` variant (its own floor) and
+    ``clone`` (pass, copy, clone, clone, copy, pass), and the plain twin.
+    Returns {label: (kernel ms, twin ms)}."""
     from zigbpe_tpu_torch.ops.kernels import merge as km
 
     aa = commonest_repeat()
     src = torch.from_numpy(padded(tiled_corpus((1 << 25) - 100), 1 << 25)).cuda()
+    bound, by = bound_ms(2 * 4 * (1 << 25))
+    fns = {"pass": km.merge_pass_multi, "copy": lambda w, t: km.merge_pass_ablated(w, t, "copy"),
+           "clone": lambda w, t: w.clone()}
     out = {}
-    for label, table in (("K=4", group), ("K=1 a==b", [[aa, aa, 256]])):
+    for label, table in (("K=4", group), ("K=1 a==b", [[aa, aa, 256]]),
+                         ("K=1 a!=b", [group[0]])):
         t = torch.tensor(table, dtype=torch.int32, device="cuda")
-        ms = time_pass(km.merge_pass_multi, src, t, 20)
+        runs = {name: [] for name in fns}
+        for name in ("pass", "copy", "clone", "clone", "copy", "pass"):
+            runs[name].append(time_pass(fns[name], src, t, 20))
+        ms, cp, cl = (statistics.fmean(runs[name]) for name in fns)
         plain = time_pass(km.merge_pass_multi_reference, src, t, 5)
-        log(f"[timing] merge pass at 2^25 tokens, {label}: kernel {ms:.4f} ms, "
-            f"plain PyTorch twin {plain:.4f} ms (CUDA events, mean)")
+        log(f"[timing] merge pass at 2^25 tokens, {label}: kernel {ms:.4f} ms "
+            f"({runs['pass'][0]:.4f}, {runs['pass'][1]:.4f}), copy variant {cp:.4f}, clone "
+            f"{cl:.4f} (in turns); kernel / copy {ms / cp:.3f}, kernel / clone {ms / cl:.3f}, "
+            f"bound {bound:.4f} ms ({by}), share of bound {bound / ms:.3f}; plain PyTorch twin "
+            f"{plain:.4f} ms (CUDA events, mean); {card}")
         out[label] = (ms, plain)
     return out
 
@@ -382,6 +464,44 @@ def opmix_input(torch, rows: int, dtype, R: int = 256):
     return x.view(rows, 128)
 
 
+def sass_counts(path: pathlib.Path) -> dict:
+    """Instructions of each kernel in a built library, NOPs left out, by
+    mangled name (``cuobjdump -sass``)."""
+    from zigbpe_tpu_torch.ops.kernels import _build
+
+    tool = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                          text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head[1]
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?[A-Z]", line) \
+                and not re.search(r"\bNOP\b", line):
+            counts[name] += 1
+    return counts
+
+
+def opmix_ops_per_token_rep(elem: int) -> float | None:
+    """SASS instructions a thread issues per token and rep in the op mix:
+    the reps-16 kernel's count less the reps-0 kernel's (both straight-line
+    code), over 16 reps of the 32 / elem tokens a lane holds; None when the
+    SASS shows neither."""
+    from zigbpe_tpu_torch.ops.kernels import _build
+
+    counts = sass_counts(_build.build("opmix"))
+    by = {}
+    for fn, n in counts.items():
+        m = re.search(r"opmix_kernelILi(\d)ELi(\d+)E", fn)
+        if m:
+            by[int(m[1]), int(m[2])] = n
+    if (elem, 16) not in by or (elem, 0) not in by:
+        return None
+    return (by[elem, 16] - by[elem, 0]) / (16 * (32 // elem))
+
+
 def check_opmix(torch, rows: int, card: str) -> dict:
     from zigbpe_tpu_torch.ops.kernels import opmix as ko
     from zigbpe_tpu_torch.probes import alu16
@@ -404,9 +524,19 @@ def check_opmix(torch, rows: int, card: str) -> dict:
         x = torch.zeros((rows, 128), dtype=dtype, device="cuda")
         ms = per_call_ms(lambda: ko.opmix(x, 256, 16), x.device)
         plain = per_call_ms(lambda: ko.opmix_reference(x, 256, 16), x.device, calls=5, runs=3)
-        bound, by = bound_ms(2 * x.numel() * x.element_size())
+        bytes_ms, _ = bound_ms(2 * x.numel() * x.element_size())
+        # the integer work: SASS instructions per token and rep on every
+        # INT32 lane at the card's maximum SM clock
+        per = opmix_ops_per_token_rep(x.element_size())
+        clock = max_sm_clock_hz()
+        alu_ms = int32_bound_ms(per * 16 * x.numel(), clock) if per is not None else 0.0
+        bound, by = (alu_ms, "operations") if alu_ms > bytes_ms else (bytes_ms, "bytes")
+        alu = (f"{alu_ms:.4f} ms ({per:.3f} SASS instructions a token and rep over {SMS} SMs "
+               f"x {INT32_LANES_PER_SM} lanes at {clock / 1e9:.3f} GHz)" if per is not None
+               else "not measured (no SASS of the kernel)")
         log(f"[probes] opmix {dtype} at 2^25 tokens, R = 256, reps 16: kernel {ms:.4f} ms, "
-            f"plain PyTorch twin {plain:.4f} ms, bound {bound:.4f} ms ({by}); {card}")
+            f"plain PyTorch twin {plain:.4f} ms; bound {bound:.4f} ms ({by}): bytes "
+            f"{bytes_ms:.4f} ms, INT32 {alu}; kernel / bound {ms / bound:.3f}; {card}")
         out = {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
                "bound_by": by, "library_ms": None}
     return out
@@ -800,19 +930,21 @@ def phase_probes(torch, group, card):
     cases.append(("a-run spanning tiles", padded(b"a" * ((1 << 20) - 3) + b"xy", 1 << 20)))
     for label, arr in cases:
         src = torch.from_numpy(arr).cuda()
-        for table in ([group[0]], [(aa, aa, 256)]):
+        # K = 1 runs the masks' KT = 1 instantiations, K = 2 and 4 their KT = 4 ones
+        for table in ([group[0]], [(aa, aa, 256)], group[:2], group):
             t = torch.tensor(table, dtype=torch.int32, device="cuda")
+            K = t.shape[0]
             for variant in km.VARIANTS:
                 gtok, gst = km.merge_pass_ablated(src.clone(), t, variant)
                 ctok, cst = km.merge_pass_ablated_reference(src.clone(), t, variant)
                 err = max(int((gtok - ctok).abs().max()),
-                          int((gst[:2].long() - cst[:2].long()).abs().max()))
+                          int((gst[:K + 1].long() - cst[:K + 1].long()).abs().max()))
                 worst["merge_pass_ablated"] = max(worst["merge_pass_ablated"], err)
-                same = err == 0 and bool((gst[2] <= 1) == (cst[2] <= 1))
+                same = err == 0 and bool((gst[K + 1] <= 1) == (cst[K + 1] <= 1))
                 require(same, f"merge_pass_ablated {variant} != twin on {label} {table}: "
                         f"gpu {gst.tolist()} twin {cst.tolist()}")
         log(f"  merge_pass_ablated == twin, every variant: {label} n={arr.size} "
-            f"(tables {group[0]} and {(aa, aa, 256)})")
+            f"(tables {group[0]}, {(aa, aa, 256)}, the group's first 2 and all 4)")
     log(f"[probes] ok: merge and copy probe kernels == twins, max_abs_err {worst} "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1177,6 +1309,26 @@ def phase_serving(torch, card, build_s):
     ms, plain, full = map(statistics.fmean, (ms_runs, plain_runs, full_runs))
     mbps = SERVE_BYTES / 1e6 / (full / 1e3)
     smem = ke.smem_bytes(SERVE_ROW, P, 32)
+    # the bound of the 1024 rows: 8 B a token of device memory, or the
+    # shared-memory traffic of the passes, each pass with a live member
+    # reading the rows' tokens and writing the kept ones (as the twin, run
+    # one group at a time, counts them), whichever is larger
+    t, moved = sub, 0
+    for p in range(P):
+        if not any(m[2] >= 0 for m in gt_np[p][: gl_np[p]]):
+            continue
+        n_in = int((t >= 0).sum())
+        t, _ = ke.encode_rows_grouped_reference(t, gt[p: p + 1], gl[p: p + 1])
+        moved += 4 * (n_in + int((t >= 0).sum()))
+    del t
+    hbm_ms, _ = bound_ms(8 * sub.numel())
+    clock = max_sm_clock_hz()
+    sm_ms = smem_bound_ms(moved, clock)
+    bound = max(hbm_ms, sm_ms)
+    log(f"[serving] encode kernel bound on 1024 rows: {bound:.4f} ms (bytes): device memory "
+        f"{hbm_ms:.4f} ms (8 B a token), shared memory {sm_ms:.4f} ms ({moved} B over {P} "
+        f"passes at {SMS} SMs x 128 B a clock, {clock / 1e9:.3f} GHz); kernel / bound "
+        f"{ms / bound:.2f}; {card}")
     log(f"[serving] encode kernel, 1024 rows x {SERVE_ROW} tokens, P={P}: kernel "
         f"{ms:.4f} ms (mean of 5: {', '.join(f'{t:.4f}' for t in ms_runs)}), plain "
         f"PyTorch twin {plain:.4f} ms (mean of 2: "
@@ -1184,7 +1336,8 @@ def phase_serving(torch, card, build_s):
     log(f"[serving] encode kernel over 1 GiB ({B} x {SERVE_ROW}): {full:.3f} ms "
         f"(mean of 3: {', '.join(f'{t:.3f}' for t in full_runs)}) = {mbps:.1f} MB/s; "
         f"dynamic shared memory {smem} B per block; build {build_s:.2f} s; {card}")
-    return {"launches": launches, "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+    return {"launches": launches, "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": "bytes"}
 
 
 def run_phase(name, fn, *args):
@@ -1213,7 +1366,7 @@ def main() -> int:
     group2 = first_group(golden[golden.index(tuple(group[-1])) + 1:])
     log(f"  real groups from the golden training: {group} then {group2}")
     max_err = run_phase("kernel", phase_kernel, torch, group, group2)
-    timing = run_phase("timing", phase_timing, torch, group)
+    timing = run_phase("timing", phase_timing, torch, group, card)
     probes = run_phase("probes", phase_probes, torch, group, card)
     enc_err = run_phase("encode-kernel", phase_encode_kernel, torch)
 
@@ -1232,10 +1385,9 @@ def main() -> int:
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     ms, plain = timing["K=4"]
-    # bounds from the shapes: a pass over 2^25 int32 tokens reads and writes
-    # each once; the encode kernel on 1024 x 32768 tokens moves 8 B a token
+    # bounds: a pass over 2^25 int32 tokens reads and writes each once; the
+    # encode kernel's comes from phase_serving (its shared-memory passes)
     pass_bound, pass_by = bound_ms(2 * 4 * (1 << 25))
-    enc_bound, enc_by = bound_ms(8 * 1024 * SERVE_ROW)
     kernels = [{
         "name": "merge_pass_multi", "route": "cuda",
         "source": "zigbpe_tpu_torch/csrc/merge.cu",
@@ -1249,7 +1401,7 @@ def main() -> int:
         "launches": serving["launches"],
         "max_abs_err": max(enc_err, serving["max_abs_err"]),
         "ms": serving["ms"], "plain_ms": serving["plain_ms"],
-        "bound_ms": enc_bound, "bound_by": enc_by, "library_ms": None,
+        "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"], "library_ms": None,
     }]
     for name, source, replaces in PROBE_SOURCES:
         kernels.append({"name": name, "route": "cuda", "source": source,

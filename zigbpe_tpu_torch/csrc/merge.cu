@@ -12,55 +12,103 @@
 // Slot 0 may have a == b; its overlapping runs resolve by rank parity
 // (``aaa`` -> [X, a]). min_kept is the smallest post-pass population of any
 // non-empty input row other than the stream's last non-empty row (BIG if
-// there is none).
+// there is none). Rows that do not change are not written.
 //
 // What bounds it on an H100: bytes of the token stream. A pass reads the
 // stream and rewrites the rows it changes; at 2^25 tokens that is 128 MiB
 // each way, about 80 us at 3.35 TB/s, against a few integer operations per
-// token. What the design does about it:
+// token. Three things kept an earlier four-launch design near twice that:
+// launches around the work (a summary, a one-block scan and a one-block
+// reduce, about 25 us a pass), tiles whose load, work and store ran one
+// after another, and a slot loop compiled for four slots whatever K was.
+// What this design does about them:
 //
-// * The TPU kernel walks its grid in order and carries the rank offset, the
-//   parity of slot 0, the head-kill flag, the kept count and the deferred
-//   min_kept from block to block. Blocks on a GPU run at once in no order,
-//   so the pass is four launches on one stream instead:
-//     1. summary (read-only, one block per 4096-token tile): snapshots the
-//        tile's head token, which the previous tile needs as its look-ahead,
-//        before any tile is rewritten, and the tile's edge candidates. Only
-//        when slot 0 has a == b does it read the whole tile, for its
-//        population and the rank of its last slot-0 non-candidate.
-//     2. scan (one block): exclusive scans over the tile summaries give each
-//        tile its rank offset, its incoming last non-candidate rank and its
-//        incoming head-kill flag.
-//     3. apply (one block per tile): loads the tile into shared memory,
-//        finds hits, kills partners and compacts each row with one warp per
-//        row (ballot / popc / shuffle scans, 16-byte accesses). Rows that
-//        do not change are not written.
-//     4. reduce (one block): folds the per-tile partial stats.
-//   The parity carry uses -1 as "no non-candidate yet", not the TPU
-//   kernel's wrapping NEG constant.
-// * Only the a == b case reads the stream twice; otherwise the summary
-//   reads one row per tile, and the pass is close to one read plus the
-//   writes of the rows that change.
+// * ONE LAUNCH A PASS. A persistent grid (SMs x blocks per SM from the
+//   occupancy API, at most one block a tile) takes 4096-token tiles (32
+//   rows) IN ORDER from an atomic tile counter: the GPU form of the TPU
+//   kernel's sequential grid carry. Each tile publishes one 64-bit status
+//   word, tagged in its high half with the pass's epoch, so that nothing is
+//   reset between passes:
+//     - without a == b in slot 0, the word is final at once: the tile's edge
+//       hit (its last token hits and kills the next tile's head). The next
+//       tile looks back one tile.
+//     - with a == b, a slot-0 candidate hits iff its rank minus the rank of
+//       the last non-candidate before it is odd. The carry is the pair
+//       (count sum s, rank-shifted last non-candidate m), combined as
+//       (s1 + s2, max(m1, m2 >= 0 ? s1 + m2 : -1)), identity (0, -1). Only
+//       h = (s - m) mod 2 decides a hit, and the pair maps onto it as a
+//       homomorphism: a tile acts on h as "h' = Q" when it holds a
+//       non-candidate and as "h' = h ^ Q" when it does not (two bits), and
+//       its edge hit is EC | (ED & (h ^ EX)) (three bits). A tile publishes
+//       these as an AGGREGATE, then runs a decoupled look-back (one warp, a
+//       window of 32 predecessors a step, composed with shuffles; a window
+//       waits only for the words up to its first INCLUSIVE one) and
+//       publishes its own inclusive word (h after the tile, its edge hit).
+//       No second read of the stream. The a == b loop is compiled apart
+//       from the a != b loop (one kernel, a branch on the table at entry),
+//       so that the a != b pass carries none of the parity code.
+//     - stats: each block sums its tiles' hits and kept counts in shared
+//       memory, keeps the minimum of its rows but its last non-empty tile's
+//       last non-empty row (the deferred row), and writes one partial. The
+//       last block to finish (a done ticket) folds the partials, leaving
+//       out the deferred row of the stream's last non-empty tile, writes
+//       the stats, resets the ticket and the tile counter and advances the
+//       epoch. No memset per pass.
+// * THE IN-PLACE HAZARD. Tile g needs tile g+1's head token (its last
+//   token's look-ahead). Its load brings the head along (16 bytes behind
+//   the tile), and tile g publishes its status word only after that load
+//   has landed; tile g+1 stores its row 0 only after reading tile g's word
+//   (the warp that owns row 0 waits on it, with an acquire load). So no
+//   head is rewritten before its reader has it.
+// * WHY NO WAIT CAN DEADLOCK. A block takes tiles in increasing order and
+//   works them in that order; every wait of tile g is on a word of a tile
+//   j < g, and each tile publishes a word (aggregate at least) before any
+//   wait of its own. A tile is taken only by a block that is running. So the
+//   smallest unfinished tile's block has finished its earlier tiles, and
+//   the tiles it waits on are earlier still, hence finished: it finishes.
+//   By induction every tile does. No block waits on a successor, and no
+//   block waits for another block to become resident.
+// * OVERLAP. Two 16 KiB tile buffers in shared memory. In an a != b pass a
+//   block takes its next tile at the current tile's hits and loads it with
+//   cp.async (16-byte, L2-only) under the current tile's compaction and
+//   stores, which are streaming 16-byte stores (st.global.cs); the other
+//   blocks of the SM (4, or 3 with more slots) fill the rest. An a == b
+//   pass takes and loads the next tile after the stores: taking late keeps
+//   tiles starting in the order they are taken, so that few look-backs find
+//   a predecessor that was taken but has not started.
+// * THE SLOT LOOP IS COMPILED FOR K. The kernel is a template on KT, the
+//   number of slots it tests (1 to 4), and the C entry dispatches the
+//   table's K: a K = 1 pass computes one candidate mask. Per-slot hit
+//   counts are summed in registers over a warp's four rows and reduced
+//   once per tile. Between phases a lane keeps only its rows' hits, a 4-bit
+//   mask a slot, and reads the tokens again from shared memory. A K = 1
+//   pass runs at 64 registers and 4 blocks an SM; more slots spilled at 64,
+//   so they run at 80 and 3 (blocks_per_sm).
 //
-// The kernels allocate nothing: the caller passes a work array of
-// zbpe_merge_work_ints(n) int32s and a stats array of K + 2 int32s. The
-// launch runs on the caller's stream and returns cudaGetLastError().
+// The kernel allocates nothing: the caller passes a work array of
+// zbpe_merge_work_ints(n) int32s, zeroed once when it is allocated and kept
+// for later passes over the same capacity (the kernel leaves it ready for
+// the next pass), and a stats array of K + 2 int32s. Passes that share a
+// work array must run in order on one stream. The launch runs on the
+// caller's stream and returns cudaGetLastError().
 //
-// Ablated passes. The kernels take a compile-time bit mask ABL of pieces to
+// Ablated passes. The kernel takes a compile-time bit mask ABL of pieces to
 // switch off; the production pass is mask 0, and zbpe_merge_pass_ablated
 // runs the other masks. They replace the ablated copies of the Pallas
 // kernel in scripts/probe_merge_budget.py (make_variant): each is this
 // kernel minus one piece, so the difference of two pass times is that
-// piece's cost. Variants and what each one leaves in tokens and stats:
+// piece's cost. The ablated masks are compiled for KT = 1 and KT = 4 only
+// (a table of 2 or 3 slots runs the KT = 4 kernel with the rest disabled),
+// which halves the build; the production pass is compiled for every K.
+// Variants and what each one leaves in tokens and stats:
 //   full      (0)            nothing off; equal to the production pass.
 //   nofast    ABL_NOFAST     every row is written, not only changed rows;
 //                            tokens and stats equal full's.
-//   noparity  ABL_NOPARITY   no slot-0 rank parity and no whole-tile
-//                            summary read for a == b: every candidate
-//                            hits; equal to full when no slot has a == b.
-//   nominkept ABL_NOMINKEPT  no kept-row minimum upkeep and no min pass in
-//                            the reduce: tokens, hits, length = full's,
-//                            min_kept = BIG.
+//   noparity  ABL_NOPARITY   no slot-0 rank parity and no look-back past one
+//                            tile: every candidate hits; equal to full when
+//                            no slot has a == b.
+//   nominkept ABL_NOMINKEPT  no kept-row minimum upkeep and no min fold:
+//                            tokens, hits, length = full's, min_kept = BIG.
 //   noedgek   ABL_NOEDGEK    no head kill across rows and tiles: a hit
 //                            kills its partner only within its row.
 //   nocompact ABL_NOCOMPACT  no warp scan and no compaction: a hit's token
@@ -72,10 +120,10 @@
 //                            length = input length, min_kept = BIG.
 //   nostore   ABL_NOSTORE    no global store of tokens: tokens unchanged,
 //                            stats equal full's.
-//   copy      ABL_COPY       the apply launch alone loads each tile into
-//                            shared memory and stores every row back: no
-//                            summary, scan, hits or reduce; tokens
-//                            unchanged, stats zero.
+//   copy      ABL_COPY       the kernel's own tile loop, double-buffered
+//                            load and store of every row, and nothing else:
+//                            the pass's floor. Tokens unchanged, stats zero.
+//   noparity is compiled for the a != b loop alone, and copy too.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,8 +135,13 @@ constexpr int TILE_ROWS = 32;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS_PER_WARP = TILE_ROWS / WARPS;
-constexpr int SCAN_THREADS = 1024;
+constexpr int TILE_VECS = TILE_ROWS * 32;  // 16-byte vectors in a tile
+constexpr int VECS_PER_THREAD = TILE_VECS / THREADS;
 constexpr int MAXK = 4;
+// Blocks an SM the launch bounds hold the kernel to: 4 (64 registers) for
+// one slot; 3 (80) for more, whose slot loop spilled at 64. Neither spills.
+constexpr int blocks_per_sm(int KT) { return KT == 1 ? 4 : 3; }
+constexpr int MAX_DEVICES = 64;
 constexpr int PAD = -1;
 constexpr int BIG = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
@@ -103,40 +156,93 @@ constexpr unsigned ABL_NOKILLS = 32;
 constexpr unsigned ABL_NOSTORE = 64;
 constexpr unsigned ABL_COPY = 128;
 
-// Fields of the work array, G int32s each (G = number of tiles).
-enum Field {
-  F_HEAD,      // tile's first token, snapshot taken before any write
-  F_CNT,       // tile population (a == b only)
-  F_LASTNC,    // local rank of the tile's last slot-0 non-candidate, or -1
-  F_EDGE,      // (local rank of the edge token << 2) | edge candidate bits
-  F_KILL,      // 1 if the tile's head token dies (previous tile's edge hit)
-  F_RANK,      // logical rank of the tile's first token
-  F_NCIN,      // last slot-0 non-candidate rank before the tile, or -1
-  F_KEPT,      // tokens the tile keeps
-  F_MABL,      // min kept over the tile's non-empty rows but its last one
-  F_LASTKEPT,  // kept count of the tile's last non-empty row, -1 if empty
-  F_HITS,      // MAXK fields: hits per slot
-  NFIELDS = F_HITS + MAXK
-};
+// The work array: a header, one 64-bit status word a tile, then one
+// partial of NPART int32s a block (the grid has at most one block a tile).
+constexpr int HDR_INTS = 4;
+enum Header { H_NEXT, H_DONE, H_EPOCH };
+enum Part { P_HITS = 0, P_KEPT = MAXK, P_MIN, P_LASTTILE, P_LASTKEPT, NPART };
 
-struct Slots {
-  int a[MAXK], b[MAXK], x[MAXK];
-};
+// Low half of a status word. A parity function f(h) is two bits: FN_NC set
+// means f(h) = FN_Q, else f(h) = h ^ FN_Q; identity 0.
+constexpr unsigned FN_Q = 1;
+constexpr unsigned FN_NC = 2;
+constexpr unsigned ST_INCL = 1u << 2;  // inclusive; else an aggregate
+constexpr unsigned ST_H = 1u << 3;     // inclusive: h after the tile
+constexpr unsigned ST_EHIT = 1u << 4;  // inclusive: the tile's edge token hits
+constexpr unsigned ST_EC = 1u << 5;    // aggregate: edge hit = EC | (ED & (h ^ EX)),
+constexpr unsigned ST_ED = 1u << 6;    //   h the parity carry entering the tile
+constexpr unsigned ST_EX = 1u << 7;
 
-__device__ __forceinline__ Slots load_slots(const int* __restrict__ table, int K) {
-  Slots s;
-#pragma unroll
-  for (int m = 0; m < MAXK; ++m) {
-    s.a[m] = m < K ? table[3 * m] : -2;
-    s.b[m] = m < K ? table[3 * m + 1] : -2;
-    s.x[m] = m < K ? table[3 * m + 2] : -2;
-  }
-  return s;
+__device__ __forceinline__ unsigned fn_compose(unsigned later, unsigned earlier) {
+  return (later & FN_NC) ? later : (earlier & FN_NC) | ((earlier ^ later) & FN_Q);
 }
 
-template <unsigned ABL>
-__device__ __forceinline__ bool parity_mode(const Slots& s) {
-  return !(ABL & ABL_NOPARITY) && s.a[0] == s.b[0] && s.a[0] >= 0;
+__device__ __forceinline__ unsigned fn_apply(unsigned f, unsigned h) {
+  return (f & FN_NC) ? (f & FN_Q) : (h ^ (f & FN_Q));
+}
+
+__device__ __forceinline__ unsigned edge_apply(unsigned w, unsigned h) {
+  return ((w & ST_EC) != 0) | (((w & ST_ED) != 0) & (h ^ ((w & ST_EX) != 0)));
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// Spin until tile j's word carries this pass's tag.
+__device__ __forceinline__ unsigned wait_word(const unsigned long long* status, int j,
+                                              unsigned epoch) {
+  unsigned long long w = ld_acquire(status + j);
+  while ((unsigned)(w >> 32) != epoch) {
+    __nanosleep(32);
+    w = ld_acquire(status + j);
+  }
+  return (unsigned)w;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Start loading tile g into buf, and with kHead the next tile's first 16
+// bytes behind it (PAD past the last tile); rows past the stream become
+// PAD. Always commits one group, so that group counts stay in step.
+template <bool kHead>
+__device__ __forceinline__ void load_tile(int4* buf, const int* tok, int g, int G,
+                                          long long nrows) {
+  const long long row0 = (long long)g * TILE_ROWS;
+  const int4* src = reinterpret_cast<const int4*>(tok) + row0 * 32;
+#pragma unroll
+  for (int u = 0; u < VECS_PER_THREAD; ++u) {
+    const int idx = threadIdx.x + u * THREADS;
+    if (row0 + idx / 32 < nrows)
+      cp_async16(buf + idx, src + idx);
+    else
+      buf[idx] = make_int4(PAD, PAD, PAD, PAD);
+  }
+  if (kHead && threadIdx.x == 0) {
+    if (g + 1 < G)
+      cp_async16(buf + TILE_VECS, src + TILE_VECS);
+    else
+      buf[TILE_VECS] = make_int4(PAD, PAD, PAD, PAD);
+  }
+  cp_async_commit();
 }
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -148,6 +254,12 @@ __device__ __forceinline__ int warp_sum(int v) {
 __device__ __forceinline__ int warp_max(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
@@ -194,7 +306,7 @@ __device__ __forceinline__ void make_quad(Quad& v, int hn, int lane) {
   }
 }
 
-// 4-bit candidate mask of slot m: (t, next) == (a_m, b_m).
+// 4-bit candidate mask of a slot: (t, next) == (a, b).
 __device__ __forceinline__ unsigned cand_mask(const Quad& v, int a, int b) {
   unsigned c = 0;
 #pragma unroll
@@ -213,442 +325,528 @@ __device__ __forceinline__ int last_noncand(const Quad& v, unsigned cand0, int l
   return r;
 }
 
-__device__ __forceinline__ int4 load_row4(const int* __restrict__ tok, long long row,
-                                          long long nrows, int lane) {
-  if (row < nrows) return reinterpret_cast<const int4*>(tok)[row * 32 + lane];
-  return make_int4(PAD, PAD, PAD, PAD);
-}
-
-// ---------------------------------------------------------------- launch 1
-
-// ABL here is the caller's mask & ABL_NOPARITY: no other piece changes it.
-template <unsigned ABL>
-__global__ void __launch_bounds__(THREADS)
-summary_kernel(const int* __restrict__ tok, const int* __restrict__ table, int K,
-               long long nrows, int G, int* __restrict__ work) {
-  const int g = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Slots s = load_slots(table, K);
-  const bool parity = parity_mode<ABL>(s);
-  const long long row0 = (long long)g * TILE_ROWS;
-  const bool has_next = g + 1 < G;
-  const int peek = has_next ? tok[(row0 + TILE_ROWS) * LANES] : PAD;
-
-  __shared__ int s_pop[TILE_ROWS];
-  __shared__ int s_nc[TILE_ROWS];
-  __shared__ int s_edge;
-
-  if (threadIdx.x == 0) {
-    work[F_HEAD * G + g] = tok[row0 * LANES];
-    s_edge = 0;
-  }
-  if (!parity) {
-    // every candidate is a hit: only the last row's edge token matters
-    if (warp == 0 && has_next) {
-      Quad v;
-      int4 w = load_row4(tok, row0 + TILE_ROWS - 1, nrows, lane);
-      v.t[0] = w.x; v.t[1] = w.y; v.t[2] = w.z; v.t[3] = w.w;
-      make_quad(v, peek, lane);
-      unsigned c0 = cand_mask(v, s.a[0], s.b[0]);
-      unsigned co = 0;
-#pragma unroll
-      for (int m = 1; m < MAXK; ++m) co |= cand_mask(v, s.a[m], s.b[m]);
-      bool e0 = __any_sync(FULL, (c0 & v.last) != 0);
-      bool eo = __any_sync(FULL, (co & v.last) != 0);
-      if (lane == 0) work[F_EDGE * G + g] = (int)e0 | ((int)eo << 1);
-    } else if (threadIdx.x == 0 && !has_next) {
-      work[F_EDGE * G + g] = 0;
+// Warp 0 of tile g > 0 with a == b: the parity carry h entering tile g and
+// the edge hit of tile g-1, by a decoupled look-back over the predecessors'
+// words. Lane l of a window reads tile base - l, the first window from g-1,
+// so that one round trip often suffices. A window waits only for the words
+// up to its first inclusive one: the tiles past it may not have started.
+// When the first window holds an inclusive word, h after each tile between
+// is known, and the warp publishes their inclusive words too: a tile's
+// aggregate is out before anyone can compute its inclusive word, which
+// holds the value the tile itself would write, so no word ever goes back
+// to an aggregate. That keeps the next look-backs short.
+__device__ __forceinline__ void look_back(unsigned long long* status, int g,
+                                          unsigned epoch, int lane, unsigned& h_in,
+                                          unsigned& ehit_prev) {
+  const unsigned long long tag = (unsigned long long)epoch << 32;
+  unsigned acc = 0;   // the composition of the tiles before g-1 passed so far
+  unsigned prev = 0;  // tile g-1's word
+  for (int base = g - 1;; base -= 32) {
+    const int j = base - lane;
+    unsigned w;
+    int first;
+    for (;;) {
+      // tile 0 is always inclusive, so j < 0 lies past the first inclusive lane
+      bool here = true;
+      w = ST_INCL | ST_H;
+      if (j >= 0) {
+        const unsigned long long v = ld_acquire(status + j);
+        here = (unsigned)(v >> 32) == epoch;
+        w = (unsigned)v;
+      }
+      const unsigned incl = __ballot_sync(FULL, here && (w & ST_INCL));
+      const unsigned have = __ballot_sync(FULL, here);
+      first = incl ? __ffs(incl) - 1 : 32;
+      const unsigned need = first == 32 ? FULL : (2u << first) - 1u;
+      if ((have & need) == need) break;
+      __nanosleep(32);
     }
-    return;
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int r = warp * ROWS_PER_WARP + i;
-    const long long row = row0 + r;
-    Quad v;
-    int4 w = load_row4(tok, row, nrows, lane);
-    v.t[0] = w.x; v.t[1] = w.y; v.t[2] = w.z; v.t[3] = w.w;
-    int hn;
-    if (r + 1 < TILE_ROWS) hn = row + 1 < nrows ? tok[(row + 1) * LANES] : PAD;
-    else hn = peek;
-    make_quad(v, hn, lane);
-    unsigned c0 = cand_mask(v, s.a[0], s.b[0]);
-    int pop = warp_sum(__popc(v.valid));
-    int nc = warp_max(last_noncand(v, c0, lane));
-    if (r == TILE_ROWS - 1) {
-      unsigned co = 0;
-#pragma unroll
-      for (int m = 1; m < MAXK; ++m) co |= cand_mask(v, s.a[m], s.b[m]);
-      // row position of the edge token (the row's last valid slot)
-      int epos = -1;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if ((v.last >> q) & 1u) epos = 4 * lane + q;
-      epos = warp_max(epos);
-      bool e0 = __any_sync(FULL, (c0 & v.last) != 0);
-      bool eo = __any_sync(FULL, (co & v.last) != 0);
-      if (lane == 0) s_edge = ((int)e0 | ((int)eo << 1)) | (max(epos, 0) << 2);
+    const bool head = base == g - 1;
+    if (head) {
+      prev = __shfl_sync(FULL, w, 0);
+      if (first == 0) {
+        h_in = (prev & ST_H) != 0;
+        ehit_prev = (prev & ST_EHIT) != 0;
+        return;
+      }
     }
-    if (lane == 0) {
-      s_pop[r] = pop;
-      s_nc[r] = nc;
-    }
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int pop = s_pop[lane];
-    int pre = warp_incl_sum(pop, lane) - pop;
-    int nc = s_nc[lane] >= 0 ? pre + s_nc[lane] : -1;
-    int cnt = warp_sum(pop);
-    int lastnc = warp_max(nc);
-    // the edge token's local rank: row 31's prefix plus its row position
-    int pre31 = __shfl_sync(FULL, pre, TILE_ROWS - 1);
-    if (lane == 0) {
-      work[F_CNT * G + g] = cnt;
-      work[F_LASTNC * G + g] = lastnc;
-      int e = s_edge;
-      work[F_EDGE * G + g] = (e & 3) | (((e >> 2) + pre31) << 2);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- launch 2
-
-struct OpSum {
-  __device__ int operator()(int x, int y) const { return x + y; }
-};
-struct OpMax {
-  __device__ int operator()(int x, int y) const { return max(x, y); }
-};
-
-// Exclusive block scan (blockDim.x a multiple of 32, at most 1024). s holds
-// 33 ints. Returns the exclusive prefix; ``total`` gets the block total.
-template <class Op>
-__device__ int block_excl_scan(int v, int identity, Op op, int* s, int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int t = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl = op(incl, t);
-  }
-  int excl = __shfl_up_sync(FULL, incl, 1);
-  if (lane == 0) excl = identity;
-  if (lane == 31) s[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nw ? s[lane] : identity;
-    int wi = w;
+    // suffix scan: lane l gets the composition of lanes l..31, lane l last
+    unsigned f = lane < first ? (w & (FN_NC | FN_Q))
+                 : lane == first ? (FN_NC | ((w & ST_H) != 0)) : 0u;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      int t = __shfl_up_sync(FULL, wi, o);
-      if (lane >= o) wi = op(wi, t);
+      const unsigned t = __shfl_down_sync(FULL, f, o);
+      if (lane + o < 32) f = fn_compose(f, t);
     }
-    int wex = __shfl_up_sync(FULL, wi, 1);
-    if (lane == 0) wex = identity;
-    s[lane] = wex;
-    if (lane == 31) s[32] = wi;
+    const unsigned before = __shfl_down_sync(FULL, f, 1);  // h entering lane l's tile
+    if (head && first < 32) {
+      if (lane >= 1 && lane < first)  // the tiles between, now inclusive
+        st_release(status + j, tag | ST_INCL | ((f & FN_Q) ? ST_H : 0u) |
+                                   (edge_apply(w, before & FN_Q) ? ST_EHIT : 0u));
+      const unsigned h_prev = __shfl_sync(FULL, f, 1) & FN_Q;  // h after tile g-2
+      h_in = fn_apply(prev & (FN_NC | FN_Q), h_prev);
+      ehit_prev = edge_apply(prev, h_prev);
+      return;
+    }
+    // tile g-1 itself (lane 0 of the first window) is applied at the end
+    acc = fn_compose(acc, __shfl_sync(FULL, f, head ? 1 : 0));
+    if (first < 32) break;
   }
-  __syncthreads();
-  excl = op(s[warp], excl);
-  total = s[32];
-  __syncthreads();
-  return excl;
+  const unsigned h_prev = acc & FN_Q;  // constant: the walk ended inclusive
+  h_in = fn_apply(prev & (FN_NC | FN_Q), h_prev);
+  ehit_prev = edge_apply(prev, h_prev);
 }
 
-// ABL here is the caller's mask & ABL_NOPARITY.
-template <unsigned ABL>
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_kernel(const int* __restrict__ table, int K, int G, int* __restrict__ work) {
-  const Slots s = load_slots(table, K);
-  if (!parity_mode<ABL>(s)) {
-    for (int g = threadIdx.x; g < G; g += blockDim.x)
-      work[F_KILL * G + g] = g > 0 && (work[F_EDGE * G + g - 1] & 3) != 0;
-    return;
-  }
-  __shared__ int sh[33];
-  int carry_sum = 0, carry_max = -1;
-  for (int base = 0; base < G; base += blockDim.x) {
-    const int g = base + threadIdx.x;
-    const int cnt = g < G ? work[F_CNT * G + g] : 0;
-    const int ln = g < G ? work[F_LASTNC * G + g] : -1;
-    int tot_sum, tot_max;
-    const int rank = carry_sum + block_excl_scan(cnt, 0, OpSum(), sh, tot_sum);
-    const int v = ln >= 0 ? rank + ln : -1;
-    const int ncin = max(carry_max, block_excl_scan(v, -1, OpMax(), sh, tot_max));
-    if (g < G) {
-      work[F_RANK * G + g] = rank;
-      work[F_NCIN * G + g] = ncin;
-      const int e = work[F_EDGE * G + g];
-      // the edge token is a slot-0 candidate: it hits iff its distance to
-      // the last non-candidate before it is odd
-      const int rank_e = rank + (e >> 2);
-      const bool hit0 = (e & 1) && (((rank_e - max(ncin, v)) & 1) == 1);
-      if (g + 1 < G) work[F_KILL * G + g + 1] = hit0 || (e & 2);
-      if (g == 0) work[F_KILL * G] = 0;
-    }
-    carry_sum += tot_sum;
-    carry_max = max(carry_max, tot_max);
-  }
+// A row's quad from the tile in shared memory, ``hn`` the next row's head.
+__device__ __forceinline__ void row_quad(Quad& v, const int4* s_tile4, int r, int hn, int lane) {
+  const int4 w = s_tile4[r * 32 + lane];
+  v.t[0] = w.x; v.t[1] = w.y; v.t[2] = w.z; v.t[3] = w.w;
+  make_quad(v, hn, lane);
 }
 
-// ---------------------------------------------------------------- launch 3
+// A block's shared memory: two tile buffers, each with the next tile's
+// first 16 bytes behind it, per-row values of the tile at work, and the
+// block's running stats.
+struct Smem {
+  int4 buf[2][TILE_VECS + 1];
+  int pop[TILE_ROWS], nc[TILE_ROWS], in[TILE_ROWS], ehit[TILE_ROWS];
+  int a[MAXK], b[MAXK], x[MAXK];  // the slots
+  int acc[WARPS][MAXK + 2];  // per warp: hits, kept, min kept
+  int take, edge, lk, last, bmin, lasttile, lastkept;
+  int htile, hready;  // a == b: the carry entering the tile, and the tile it is for
+  int sum[MAXK + 1], tmax, minkept;  // the last block's fold
+};
 
-// The production pass compiles to 64 registers a thread, which lets 4 blocks
-// of 256 threads share an SM. The bound holds every ablated instantiation to
-// that occupancy too: left free, some took 73-86 registers and ran 2-3
-// blocks per SM, so their times measured register allocation, not the work
-// they leave out.
-constexpr int APPLY_BLOCKS_PER_SM = 4;
-
-template <unsigned ABL>
-__global__ void __launch_bounds__(THREADS, APPLY_BLOCKS_PER_SM)
-apply_kernel(int* __restrict__ tok, const int* __restrict__ table, int K,
-             long long nrows, int G, int* __restrict__ work) {
+// The block's tile loop. PAR: slot 0 has a == b (rank parity and the
+// decoupled look-back); compiled apart from the a != b loop, so that
+// neither pays for the other's code.
+template <int KT, unsigned ABL, bool PAR>
+__device__ __forceinline__ void tile_loop(Smem& sm, int* __restrict__ tok, long long nrows,
+                                          int G, int* hdr, unsigned long long* status,
+                                          unsigned epoch, int a0, int b0) {
+  constexpr bool kCopy = (ABL & ABL_COPY) != 0;
   constexpr bool kFast = !(ABL & ABL_NOFAST);
   constexpr bool kMinKept = !(ABL & ABL_NOMINKEPT);
   constexpr bool kEdgeKill = !(ABL & ABL_NOEDGEK);
   constexpr bool kCompact = !(ABL & ABL_NOCOMPACT);
   constexpr bool kKills = !(ABL & ABL_NOKILLS);
   constexpr bool kStore = !(ABL & ABL_NOSTORE);
-  const int g = blockIdx.x;
+  // When a block takes its next tile: an a != b pass at the hits, so that
+  // the load runs under this tile's stores; an a == b pass after the
+  // stores, so that tiles start in the order they are taken and few
+  // look-backs wait on a tile that was taken but has not started (0.241 ms
+  // against 0.203 at 2^25 tokens on an H100; taking late slows a != b 10%).
+  constexpr bool kLate = PAR;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Slots s = load_slots(table, K);
-  const bool parity = parity_mode<ABL>(s);
-  const long long row0 = (long long)g * TILE_ROWS;
+  const unsigned long long tag = (unsigned long long)epoch << 32;
 
-  __shared__ int4 s_tile4[TILE_ROWS * 32];
-  int* s_tile = reinterpret_cast<int*>(s_tile4);
-  __shared__ int s_pop[TILE_ROWS], s_nc[TILE_ROWS], s_pre[TILE_ROWS];
-  __shared__ int s_in[TILE_ROWS], s_ehit[TILE_ROWS];
-  __shared__ int s_lastne, s_kept, s_mabl, s_lastkept, s_hits[MAXK];
-
-  for (int idx = threadIdx.x; idx < TILE_ROWS * 32; idx += THREADS)
-    s_tile4[idx] = load_row4(tok, row0 + idx / 32, nrows, idx % 32);
-  if constexpr ((ABL & ABL_COPY) != 0) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < TILE_ROWS * 32; idx += THREADS)
-      if (row0 + idx / 32 < nrows) reinterpret_cast<int4*>(tok)[row0 * 32 + idx] = s_tile4[idx];
-    return;
-  }
-  if (threadIdx.x == 0) {
-    s_kept = 0;
-    s_mabl = BIG;
-    s_lastkept = -1;
-#pragma unroll
-    for (int m = 0; m < MAXK; ++m) s_hits[m] = 0;
-  }
-  // the next tile may already be rewritten: its head comes from the
-  // snapshot the summary launch took
-  const int peek = g + 1 < G ? work[F_HEAD * G + g + 1] : PAD;
-  const int kill_in = kEdgeKill ? work[F_KILL * G + g] : 0;
+  if (threadIdx.x == 0) sm.take = atomicAdd(hdr + H_NEXT, 1);
   __syncthreads();
+  int g = sm.take, cur = 0;
+  int prev_g = -1, prev_lastne = -1;  // thread 0: the last tile's row to defer
+  if (g < G) load_tile<!kCopy>(sm.buf[0], tok, g, G, nrows);
 
-  Quad v[ROWS_PER_WARP];
-  unsigned cand[ROWS_PER_WARP][MAXK];
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int r = warp * ROWS_PER_WARP + i;
-    int4 w = s_tile4[r * 32 + lane];
-    v[i].t[0] = w.x; v[i].t[1] = w.y; v[i].t[2] = w.z; v[i].t[3] = w.w;
-    const int hn = r + 1 < TILE_ROWS ? s_tile[(r + 1) * LANES] : peek;
-    make_quad(v[i], hn, lane);
-#pragma unroll
-    for (int m = 0; m < MAXK; ++m) cand[i][m] = cand_mask(v[i], s.a[m], s.b[m]);
-    const int pop = warp_sum(__popc(v[i].valid));
-    const int nc = parity ? warp_max(last_noncand(v[i], cand[i][0], lane)) : -1;
-    if (lane == 0) {
-      s_pop[r] = pop;
-      s_nc[r] = nc;
+  while (g < G) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile g is in buf[cur]; the last tile is done
+    if (kMinKept && !kCopy && threadIdx.x == 0 && prev_lastne >= 0) {
+      // defer the last tile's last non-empty row: it may be the stream's last
+      if (sm.lasttile >= 0) sm.bmin = min(sm.bmin, sm.lastkept);
+      sm.lasttile = prev_g;
+      sm.lastkept = sm.lk;
     }
-  }
-  __syncthreads();  // s_tile is free for staging from here on
+    const long long row0 = (long long)g * TILE_ROWS;
+    const int4* s_tile4 = sm.buf[cur];
+    int* s_tile = reinterpret_cast<int*>(sm.buf[cur]);
+    // the next tile is taken late (here for the copy, else at the hits or,
+    // with a == b, after the stores), so that tiles start in about the
+    // order they are taken
+    int took = 0;
+    if (kCopy && threadIdx.x == 0) took = atomicAdd(hdr + H_NEXT, 1);
+    unsigned kill_prev = 0;  // warp 0, a == b: tile g-1's edge hit
+    unsigned hs[ROWS_PER_WARP];  // per row: a lane's hits, 4 bits a slot
 
-  if (warp == 0) {
-    const int pop = s_pop[lane];
-    const int pre = warp_incl_sum(pop, lane) - pop;
-    s_pre[lane] = pre;
-    if constexpr (kMinKept) {
-      const unsigned ne = __ballot_sync(FULL, pop > 0);
-      if (lane == 0) s_lastne = ne ? 31 - __clz(ne) : -1;
-    }
-    if (parity) {
-      const int rank = work[F_RANK * G + g];
-      const int ncin = work[F_NCIN * G + g];
-      const int nc = s_nc[lane] >= 0 ? rank + pre + s_nc[lane] : -1;
-      const int incl = warp_incl_max(nc, lane);
-      int excl = __shfl_up_sync(FULL, incl, 1);
-      if (lane == 0) excl = -1;
-      s_in[lane] = max(ncin, excl);
-    }
-  }
-  __syncthreads();
+    if constexpr (!kCopy) {
+      // the next tile's head, read with the tile (before the next tile can
+      // rewrite it: this tile's word is published after the read)
+      const int peek = s_tile[TILE_ROWS * LANES];
 
-  unsigned hit[ROWS_PER_WARP];
-  const int rank_off = parity ? work[F_RANK * G + g] : 0;
+      // ---- rows: population, last slot-0 non-candidate, the edge token
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int r = warp * ROWS_PER_WARP + i;
-    unsigned h0 = cand[i][0];
-    if (parity) {
-      // leftmost-greedy: a slot-0 candidate hits iff its rank minus the
-      // rank of the last non-candidate before it is odd
-      const int base = rank_off + s_pre[r];
-      int lane_nc = -1;
+      for (int i = 0; i < ROWS_PER_WARP; ++i) {
+        const int r = warp * ROWS_PER_WARP + i;
+        Quad v;
+        row_quad(v, s_tile4, r, r + 1 < TILE_ROWS ? s_tile[(r + 1) * LANES] : peek, lane);
+        const unsigned c0 = cand_mask(v, a0, b0);
+        const int pop = warp_sum(__popc(v.valid));
+        if (r == TILE_ROWS - 1) {  // the tile's edge token: its last
+          unsigned other = 0;
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (((v[i].valid & ~cand[i][0]) >> q) & 1u) lane_nc = base + 4 * lane + q;
-      const int incl = warp_incl_max(lane_nc, lane);
-      int run = __shfl_up_sync(FULL, incl, 1);
-      if (lane == 0) run = -1;
-      run = max(run, s_in[r]);
-      h0 = 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int rk = base + 4 * lane + q;
-        if ((cand[i][0] >> q) & 1u) {
-          h0 |= (unsigned)(((rk - run) & 1) == 1) << q;
-        } else if ((v[i].valid >> q) & 1u) {
-          run = rk;
-        }
-      }
-    }
-    hit[i] = h0 | cand[i][1] | cand[i][2] | cand[i][3];
-    cand[i][0] = h0;  // from here on cand[i][m] are the hits of slot m
-    if constexpr (kEdgeKill) {
-      const bool eh = __any_sync(FULL, (hit[i] & v[i].last) != 0);
-      if (lane == 0) s_ehit[r] = eh;
-    }
-#pragma unroll
-    for (int m = 0; m < MAXK; ++m) {
-      const int n = warp_sum(__popc(cand[i][m]));
-      if (lane == 0 && n) atomicAdd(&s_hits[m], n);
-    }
-  }
-  __syncthreads();
-
-  const int lastne = kMinKept ? s_lastne : -1;
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int r = warp * ROWS_PER_WARP + i;
-    unsigned killed = 0;
-    if constexpr (kKills) {
-      const int prev_edge = kEdgeKill ? (r == 0 ? kill_in : s_ehit[r - 1]) : 0;
-      const unsigned left = __shfl_up_sync(FULL, hit[i], 1);
-      const bool head_kill = lane == 0 ? prev_edge != 0 : ((left >> 3) & 1u);
-      killed = ((hit[i] << 1) | (unsigned)head_kill) & v[i].valid & 0xfu;
-    }
-    const unsigned keep = v[i].valid & ~killed;
-    const int kc = __popc(keep);
-    int incl = 0, total;
-    if constexpr (kCompact) {
-      incl = warp_incl_sum(kc, lane);
-      total = __shfl_sync(FULL, incl, 31);
-    } else {
-      total = warp_sum(kc);
-    }
-    if (!kFast || __any_sync(FULL, (hit[i] | killed) != 0)) {
-      if constexpr (kCompact) {
-        int p = incl - kc;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if ((keep >> q) & 1u) {
-            int val = v[i].t[q];
-#pragma unroll
-            for (int m = 0; m < MAXK; ++m)
-              if ((cand[i][m] >> q) & 1u) val = s.x[m];
-            s_tile[r * LANES + p++] = val;
+          for (int m = 1; m < KT; ++m) other |= cand_mask(v, sm.a[m], sm.b[m]);
+          const int edge = (int)__any_sync(FULL, (c0 & v.last) != 0) |
+                           ((int)__any_sync(FULL, (other & v.last) != 0) << 1);
+          if (lane == 0) {
+            sm.edge = edge;
+            // without parity the tile's word is final: its edge hit
+            if (!PAR) st_release(status + g, tag | ST_INCL | (edge ? ST_EHIT : 0u));
           }
         }
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (4 * lane + q >= total) s_tile[r * LANES + 4 * lane + q] = PAD;
-        __syncwarp();
-        if (kStore && row0 + r < nrows)
-          reinterpret_cast<int4*>(tok)[(row0 + r) * 32 + lane] = s_tile4[r * 32 + lane];
-      } else {
-        // hits become x where they stand; partners stay
-        int o[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          o[q] = v[i].t[q];
-#pragma unroll
-          for (int m = 0; m < MAXK; ++m)
-            if ((cand[i][m] >> q) & 1u) o[q] = s.x[m];
+        if (lane == 0) sm.pop[r] = pop;
+        if (PAR) {
+          const int nc = warp_max(last_noncand(v, c0, lane));
+          if (lane == 0) sm.nc[r] = nc;
         }
-        if (kStore && row0 + r < nrows)
-          reinterpret_cast<int4*>(tok)[(row0 + r) * 32 + lane] = make_int4(o[0], o[1], o[2], o[3]);
+      }
+
+      unsigned tile_fn_agg = 0;  // warp 0, a == b: the tile's function | aggregate << 8
+      if constexpr (PAR) {
+        __syncthreads();
+        // ---- the tile's carry: its function and aggregate, published
+        if (warp == 0) {
+          const int pop = sm.pop[lane];
+          const int edge = sm.edge;
+          // row r's parity function, then their exclusive composition
+          const int ncr = sm.nc[lane];
+          unsigned f = ncr >= 0 ? (FN_NC | ((pop - ncr) & 1)) : (unsigned)(pop & 1);
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const unsigned t = __shfl_up_sync(FULL, f, o);
+            if (lane >= o) f = fn_compose(f, t);
+          }
+          const unsigned tile_fn = __shfl_sync(FULL, f, 31);
+          unsigned excl = __shfl_up_sync(FULL, f, 1);
+          if (lane == 0) excl = 0;
+          // the edge function: the edge token sits at position pop - 1 of row 31
+          unsigned agg = tile_fn;
+          if (lane == 31) {
+            const int p = pop - 1;
+            if (edge & 2) agg |= ST_EC;
+            else if (edge & 1) {
+              if (ncr >= 0) agg |= ((p - ncr) & 1) ? ST_EC : 0u;
+              else if (excl & FN_NC) agg |= (((excl & FN_Q) + p) & 1) ? ST_EC : 0u;
+              else agg |= ST_ED | ((((excl & FN_Q) ^ p) & 1) ? ST_EX : 0u);
+            }
+          }
+          agg = __shfl_sync(FULL, agg, 31);
+          tile_fn_agg = tile_fn | (agg << 8);
+          if (lane == 0) {
+            // tile 0's carry is the identity (0, -1): h = 1
+            st_release(status + g, g > 0 ? tag | agg
+                                         : tag | ST_INCL | (fn_apply(tile_fn, 1) ? ST_H : 0u) |
+                                               (edge_apply(agg, 1) ? ST_EHIT : 0u));
+          }
+          // the run start a row sees before its first non-candidate: a
+          // position of h's parity below every real position, known when a
+          // non-candidate precedes the row in the tile; else 2 + Q, h of the
+          // row being the tile's h ^ Q
+          sm.in[lane] = (excl & FN_NC) ? ((excl & FN_Q) ? -1 : -2) : 2 + (int)(excl & FN_Q);
+        }
+        __syncthreads();
+      }
+
+      // ---- hits: slot-0 parity, edge hits, per-slot counts
+      if (!kLate && threadIdx.x == 0) took = atomicAdd(hdr + H_NEXT, 1);
+      if constexpr (PAR) {
+        if (warp == 0) {
+          // the decoupled look-back, under the other warps' rows: only rows
+          // before the tile's first non-candidate wait for its result
+          unsigned h_in = 1;
+          if (g > 0) {
+            look_back(status, g, epoch, lane, h_in, kill_prev);
+            if (lane == 0) {
+              const unsigned agg = tile_fn_agg >> 8;
+              st_release(status + g, tag | ST_INCL |
+                                         (fn_apply(tile_fn_agg & 0xffu, h_in) ? ST_H : 0u) |
+                                         (edge_apply(agg, h_in) ? ST_EHIT : 0u));
+            }
+          }
+          if (lane == 0) {
+            sm.htile = (int)h_in;
+            __threadfence_block();
+            *reinterpret_cast<volatile int*>(&sm.hready) = g;
+          }
+          __syncwarp();
+        }
+      }
+      int hc[KT];
+#pragma unroll
+      for (int m = 0; m < KT; ++m) hc[m] = 0;
+#pragma unroll
+      for (int i = 0; i < ROWS_PER_WARP; ++i) {
+        const int r = warp * ROWS_PER_WARP + i;
+        Quad v;
+        row_quad(v, s_tile4, r, r + 1 < TILE_ROWS ? s_tile[(r + 1) * LANES] : peek, lane);
+        unsigned c0 = cand_mask(v, a0, b0);
+        if constexpr (PAR) {
+          // leftmost-greedy: a slot-0 candidate hits iff its position minus
+          // that of the last non-candidate before it is odd
+          int lane_nc = -3;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (((v.valid & ~c0) >> q) & 1u) lane_nc = 4 * lane + q;
+          const int incl = warp_incl_max(lane_nc, lane);
+          int run = __shfl_up_sync(FULL, incl, 1);
+          if (lane == 0) run = -3;
+          int start = sm.in[r];
+          if (start >= 2) {  // the row waits for the tile's carry
+            while (*reinterpret_cast<volatile int*>(&sm.hready) != g) {
+            }
+            start = ((start - 2) ^ *reinterpret_cast<volatile int*>(&sm.htile)) ? -1 : -2;
+          }
+          run = max(run, start);
+          unsigned h0 = 0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int p = 4 * lane + q;
+            if ((c0 >> q) & 1u) {
+              h0 |= (unsigned)(((p - run) & 1) == 1) << q;
+            } else if ((v.valid >> q) & 1u) {
+              run = p;
+            }
+          }
+          c0 = h0;
+        }
+        unsigned hit = c0, packed = c0;
+        hc[0] += __popc(c0);
+#pragma unroll
+        for (int m = 1; m < KT; ++m) {
+          const unsigned c = cand_mask(v, sm.a[m], sm.b[m]);
+          hit |= c;
+          hc[m] += __popc(c);
+          packed |= c << (4 * m);
+        }
+        hs[i] = packed;
+        if constexpr (kEdgeKill) {
+          const bool eh = __any_sync(FULL, (hit & v.last) != 0);
+          if (lane == 0) sm.ehit[r] = eh;
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < KT; ++m) {
+        const int n = warp_sum(hc[m]);
+        if (lane == 0) sm.acc[warp][m] += n;
       }
     }
-    if (lane == 0) {
-      atomicAdd(&s_kept, total);
-      if (kMinKept && s_pop[r] > 0) {
-        if (r == lastne) s_lastkept = total;
-        else atomicMin(&s_mabl, total);
+    if (!kLate && threadIdx.x == 0) sm.take = took;
+    __syncthreads();
+    int gn = sm.take;
+    if (!kLate && gn < G) load_tile<!kCopy>(sm.buf[cur ^ 1], tok, gn, G, nrows);
+
+    if constexpr (kCopy) {
+#pragma unroll
+      for (int u = 0; u < VECS_PER_THREAD; ++u) {
+        const int idx = threadIdx.x + u * THREADS;
+        if (row0 + idx / 32 < nrows)
+          __stcs(reinterpret_cast<int4*>(tok) + row0 * 32 + idx, s_tile4[idx]);
       }
+    } else {
+      // ---- kills, compaction, stores
+      int lastne = -1;
+      if constexpr (kMinKept) {
+        const unsigned ne = __ballot_sync(FULL, sm.pop[lane] > 0);
+        lastne = ne ? 31 - __clz(ne) : -1;
+      }
+      int kill_in = 0;
+      if (warp == 0 && g > 0) {
+        // row 0 is stored only once tile g-1 has read it (its word is out)
+        if constexpr (PAR) {
+          kill_in = kill_prev;
+        } else {
+          unsigned w = 0;
+          if (lane == 0) w = wait_word(status, g - 1, epoch);
+          kill_in = (__shfl_sync(FULL, w, 0) & ST_EHIT) != 0;
+        }
+      }
+      int kept = 0, mn = BIG;
+#pragma unroll
+      for (int i = 0; i < ROWS_PER_WARP; ++i) {
+        const int r = warp * ROWS_PER_WARP + i;
+        const int4 w4 = s_tile4[r * 32 + lane];
+        const int t[4] = {w4.x, w4.y, w4.z, w4.w};
+        const unsigned valid = (unsigned)(t[0] >= 0) | ((unsigned)(t[1] >= 0) << 1) |
+                               ((unsigned)(t[2] >= 0) << 2) | ((unsigned)(t[3] >= 0) << 3);
+        unsigned hit = 0;
+#pragma unroll
+        for (int m = 0; m < KT; ++m) hit |= (hs[i] >> (4 * m)) & 0xfu;
+        unsigned killed = 0;
+        if constexpr (kKills) {
+          const int prev_edge = kEdgeKill ? (r == 0 ? kill_in : sm.ehit[r - 1]) : 0;
+          const unsigned left = __shfl_up_sync(FULL, hit, 1);
+          const bool head_kill = lane == 0 ? prev_edge != 0 : ((left >> 3) & 1u);
+          killed = ((hit << 1) | (unsigned)head_kill) & valid & 0xfu;
+        }
+        const unsigned keep = valid & ~killed;
+        const int kc = __popc(keep);
+        int incl = 0, total;
+        if constexpr (kCompact) {
+          incl = warp_incl_sum(kc, lane);
+          total = __shfl_sync(FULL, incl, 31);
+        } else {
+          total = warp_sum(kc);
+        }
+        if (!kFast || __any_sync(FULL, (hit | killed) != 0)) {
+          int o[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            o[q] = t[q];
+#pragma unroll
+            for (int m = 0; m < KT; ++m)
+              if ((hs[i] >> (4 * m + q)) & 1u) o[q] = sm.x[m];
+          }
+          int4 out;
+          if constexpr (kCompact) {
+            __syncwarp();  // the row is read; now rewrite it compacted
+            int p = incl - kc;
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if ((keep >> q) & 1u) s_tile[r * LANES + p++] = o[q];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (4 * lane + q >= total) s_tile[r * LANES + 4 * lane + q] = PAD;
+            __syncwarp();
+            out = s_tile4[r * 32 + lane];
+          } else {
+            // hits become x where they stand; partners stay
+            out = make_int4(o[0], o[1], o[2], o[3]);
+          }
+          if (kStore && row0 + r < nrows)
+            __stcs(reinterpret_cast<int4*>(tok) + (row0 + r) * 32 + lane, out);
+        }
+        kept += total;
+        if (kMinKept && sm.pop[r] > 0) {
+          if (r == lastne) {
+            if (lane == 0) sm.lk = total;
+          } else {
+            mn = min(mn, total);
+          }
+        }
+      }
+      if (lane == 0) {
+        sm.acc[warp][MAXK] += kept;
+        sm.acc[warp][MAXK + 1] = min(sm.acc[warp][MAXK + 1], mn);
+      }
+      prev_g = g;
+      prev_lastne = lastne;
     }
+    if constexpr (kLate) {
+      if (threadIdx.x == 0) sm.take = atomicAdd(hdr + H_NEXT, 1);
+      __syncthreads();
+      gn = sm.take;
+      if (gn < G) load_tile<!kCopy>(sm.buf[cur ^ 1], tok, gn, G, nrows);
+    }
+    g = gn;
+    cur ^= 1;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    work[F_KEPT * G + g] = s_kept;
-    if constexpr (kMinKept) {
-      work[F_MABL * G + g] = s_mabl;
-      work[F_LASTKEPT * G + g] = s_lastkept;
-    }
-#pragma unroll
-    for (int m = 0; m < MAXK; ++m) work[(F_HITS + m) * G + g] = s_hits[m];
+  if (kMinKept && !kCopy && threadIdx.x == 0 && prev_lastne >= 0) {
+    if (sm.lasttile >= 0) sm.bmin = min(sm.bmin, sm.lastkept);
+    sm.lasttile = prev_g;
+    sm.lastkept = sm.lk;
   }
 }
 
-// ---------------------------------------------------------------- launch 4
-
-// ABL here is the caller's mask & ABL_NOMINKEPT.
-template <unsigned ABL>
-__global__ void __launch_bounds__(SCAN_THREADS)
-reduce_kernel(int K, int G, const int* __restrict__ work, int* __restrict__ stats) {
+template <int KT, unsigned ABL>
+__global__ void __launch_bounds__(THREADS, blocks_per_sm(KT))
+merge_kernel(int* __restrict__ tok, const int* __restrict__ table, int K, long long nrows,
+             int G, int* __restrict__ work, int* __restrict__ stats) {
+  constexpr bool kCopy = (ABL & ABL_COPY) != 0;
   constexpr bool kMinKept = !(ABL & ABL_NOMINKEPT);
-  __shared__ int s_sum[MAXK + 1], s_glast, s_min;
+  const int lane = threadIdx.x & 31;
+  __shared__ Smem sm;
+
+  int* hdr = work;
+  unsigned long long* status = reinterpret_cast<unsigned long long*>(work + HDR_INTS);
+  int* part = work + HDR_INTS + 2 * G;
+  // this pass's tag; the last block advances the stored epoch after every
+  // block has read it
+  const unsigned epoch = (unsigned)*reinterpret_cast<volatile int*>(hdr + H_EPOCH) + 1u;
+
+  // slot 0 stays in registers; the other slots are read from shared memory
+  const int a0 = table[0], b0 = table[1];
+  if (threadIdx.x < WARPS * (MAXK + 2))
+    (&sm.acc[0][0])[threadIdx.x] = threadIdx.x % (MAXK + 2) == MAXK + 1 ? BIG : 0;
+  if (threadIdx.x < MAXK) {
+    const bool on = threadIdx.x < K;
+    sm.a[threadIdx.x] = on ? table[3 * threadIdx.x] : -2;
+    sm.b[threadIdx.x] = on ? table[3 * threadIdx.x + 1] : -2;
+    sm.x[threadIdx.x] = on ? table[3 * threadIdx.x + 2] : -2;
+  }
   if (threadIdx.x == 0) {
-    for (int m = 0; m <= MAXK; ++m) s_sum[m] = 0;
-    s_glast = -1;
-    s_min = BIG;
+    sm.bmin = BIG;
+    sm.lasttile = -1;
+    sm.lastkept = -1;
+    sm.hready = -1;
+  }
+  if constexpr ((ABL & ABL_NOPARITY) != 0 || kCopy) {
+    tile_loop<KT, ABL, false>(sm, tok, nrows, G, hdr, status, epoch, a0, b0);
+  } else {
+    if (a0 == b0 && a0 >= 0)
+      tile_loop<KT, ABL, true>(sm, tok, nrows, G, hdr, status, epoch, a0, b0);
+    else
+      tile_loop<KT, ABL, false>(sm, tok, nrows, G, hdr, status, epoch, a0, b0);
+  }
+
+  // ---- the block's partial, then the last block folds the stats
+  if (threadIdx.x == 0) {
+    int* pb = part + (long long)blockIdx.x * NPART;
+    int mn = sm.bmin;
+    for (int w = 0; w < WARPS; ++w) mn = min(mn, sm.acc[w][MAXK + 1]);
+#pragma unroll
+    for (int m = 0; m <= MAXK; ++m) {
+      int s = 0;
+      for (int w = 0; w < WARPS; ++w) s += sm.acc[w][m];
+      pb[P_HITS + m] = s;  // m == MAXK is P_KEPT
+    }
+    pb[P_MIN] = mn;
+    pb[P_LASTTILE] = sm.lasttile;
+    pb[P_LASTKEPT] = sm.lastkept;
+    __threadfence();
+    sm.last = atomicAdd(hdr + H_DONE, 1) == (int)gridDim.x - 1;
   }
   __syncthreads();
+  if (!sm.last) return;
+  __threadfence();
+
   int sum[MAXK + 1] = {0, 0, 0, 0, 0};
-  int glast = -1, mn = BIG;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+  int tmax = -1;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += THREADS) {
+    const int* pb = part + (long long)b * NPART;
 #pragma unroll
-    for (int m = 0; m < MAXK; ++m) sum[m] += work[(F_HITS + m) * G + g];
-    sum[MAXK] += work[F_KEPT * G + g];
-    if constexpr (kMinKept) {
-      if (work[F_LASTKEPT * G + g] >= 0) glast = g;
-      mn = min(mn, work[F_MABL * G + g]);
-    }
+    for (int m = 0; m <= MAXK; ++m) sum[m] += __ldcg(pb + P_HITS + m);
+    tmax = max(tmax, __ldcg(pb + P_LASTTILE));
   }
+  if (threadIdx.x == 0) {
+    for (int m = 0; m <= MAXK; ++m) sm.sum[m] = 0;
+    sm.tmax = -1;
+    sm.minkept = BIG;
+  }
+  __syncthreads();
 #pragma unroll
   for (int m = 0; m <= MAXK; ++m) {
     const int t = warp_sum(sum[m]);
-    if ((threadIdx.x & 31) == 0) atomicAdd(&s_sum[m], t);
+    if (lane == 0) atomicAdd(&sm.sum[m], t);
   }
-  if constexpr (kMinKept) atomicMax(&s_glast, glast);
+  tmax = warp_max(tmax);
+  if (lane == 0) atomicMax(&sm.tmax, tmax);
   __syncthreads();
-  if constexpr (kMinKept) {
-    // the last non-empty row of every non-empty tile but the stream's last
-    // one is interior
-    const int gl = s_glast;
-    for (int g = threadIdx.x; g < gl; g += blockDim.x) {
-      const int lk = work[F_LASTKEPT * G + g];
-      if (lk >= 0) mn = min(mn, lk);
-    }
-    atomicMin(&s_min, mn);
+  // every block's minimum, and every deferred row but the stream's last
+  int mn = BIG;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += THREADS) {
+    const int* pb = part + (long long)b * NPART;
+    mn = min(mn, __ldcg(pb + P_MIN));
+    const int lt = __ldcg(pb + P_LASTTILE);
+    if (lt >= 0 && lt != sm.tmax) mn = min(mn, __ldcg(pb + P_LASTKEPT));
   }
+  mn = warp_min(mn);
+  if (lane == 0) atomicMin(&sm.minkept, mn);
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int m = 0; m < K; ++m) stats[m] = s_sum[m];
-    stats[K] = s_sum[MAXK];
-    stats[K + 1] = s_min;
+    for (int m = 0; m < K; ++m) stats[m] = kCopy ? 0 : sm.sum[m];
+    stats[K] = kCopy ? 0 : sm.sum[MAXK];
+    stats[K + 1] = kCopy ? 0 : (kMinKept ? sm.minkept : BIG);
+    hdr[H_NEXT] = 0;
+    hdr[H_DONE] = 0;
+    hdr[H_EPOCH] = (int)epoch;
   }
 }
 
@@ -661,40 +859,78 @@ inline bool bad_args(long long n, int K) {
   return n <= 0 || n % LANES != 0 || K < 1 || K > MAXK;
 }
 
-template <unsigned ABL>
+// SMs of the current device, asked once per device.
+int sm_count() {
+  static int cache[MAX_DEVICES];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (dev < MAX_DEVICES && cache[dev]) return cache[dev];
+  int n = 1;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) n = 1;
+  if (dev < MAX_DEVICES) cache[dev] = n;
+  return n;
+}
+
+// The persistent grid: the blocks that fit on the card at once (occupancy
+// API, asked once per instantiation), at most one a tile.
+template <int KT, unsigned ABL>
+int grid_for(long long n) {
+  static int per_sm = 0;
+  if (!per_sm) {
+    int b = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, merge_kernel<KT, ABL>, THREADS, 0) !=
+            cudaSuccess || b < 1)
+      b = 1;
+    per_sm = b;
+  }
+  const long long resident = (long long)sm_count() * per_sm;
+  const int G = num_tiles(n);
+  return (int)(G < resident ? G : resident);
+}
+
+template <int KT, unsigned ABL>
 int run_pass(int* tokens, long long n, const int* table, int K, int* work, int* stats,
              cudaStream_t st) {
-  const long long nrows = n / LANES;
-  const int G = num_tiles(n);
-  if constexpr ((ABL & ABL_COPY) != 0) {
-    const cudaError_t e = cudaMemsetAsync(stats, 0, sizeof(int) * (K + 2), st);
-    if (e != cudaSuccess) return (int)e;
-    apply_kernel<ABL><<<G, THREADS, 0, st>>>(tokens, table, K, nrows, G, work);
-  } else {
-    constexpr unsigned P = ABL & ABL_NOPARITY, M = ABL & ABL_NOMINKEPT;
-    summary_kernel<P><<<G, THREADS, 0, st>>>(tokens, table, K, nrows, G, work);
-    scan_kernel<P><<<1, SCAN_THREADS, 0, st>>>(table, K, G, work);
-    apply_kernel<ABL><<<G, THREADS, 0, st>>>(tokens, table, K, nrows, G, work);
-    reduce_kernel<M><<<1, SCAN_THREADS, 0, st>>>(K, G, work, stats);
-  }
+  merge_kernel<KT, ABL><<<grid_for<KT, ABL>(n), THREADS, 0, st>>>(
+      tokens, table, K, n / LANES, num_tiles(n), work, stats);
   return (int)cudaGetLastError();
+}
+
+int run_production(int* tokens, long long n, const int* table, int K, int* work, int* stats,
+                   cudaStream_t st) {
+  if (K == 1) return run_pass<1, 0>(tokens, n, table, K, work, stats, st);
+  if (K == 2) return run_pass<2, 0>(tokens, n, table, K, work, stats, st);
+  if (K == 3) return run_pass<3, 0>(tokens, n, table, K, work, stats, st);
+  return run_pass<4, 0>(tokens, n, table, K, work, stats, st);
+}
+
+// An ablated mask runs its KT = 1 instantiation for K = 1, else KT = 4.
+template <unsigned ABL>
+int run_ablated(int* tokens, long long n, const int* table, int K, int* work, int* stats,
+                cudaStream_t st) {
+  if (K == 1) return run_pass<1, ABL>(tokens, n, table, K, work, stats, st);
+  return run_pass<4, ABL>(tokens, n, table, K, work, stats, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// int32s of scratch the pass needs for a stream of n tokens.
-long long zbpe_merge_work_ints(long long n) { return (long long)NFIELDS * num_tiles(n); }
+// int32s of scratch the pass needs for a stream of n tokens: a header, a
+// 64-bit status word a tile and a partial a block (at most a block a tile).
+long long zbpe_merge_work_ints(long long n) {
+  return HDR_INTS + (long long)(2 + NPART) * num_tiles(n);
+}
 
 // One fused merge pass over tokens[n] (n > 0, a multiple of 128), in place.
 // table: int32[K][3] device array of (a, b, new) slots, 1 <= K <= 4, a
-// disabled slot is (-2, -2, -2). work: zbpe_merge_work_ints(n) int32s.
-// stats: int32[K + 2]. Returns cudaGetLastError() after the launches.
+// disabled slot is (-2, -2, -2). work: zbpe_merge_work_ints(n) int32s,
+// zeroed before the first pass and kept between passes. stats: int32[K + 2].
+// One launch; returns cudaGetLastError() after it.
 int zbpe_merge_pass(int* tokens, long long n, const int* table, int K, int* work,
                     int* stats, void* stream) {
   if (bad_args(n, K)) return (int)cudaErrorInvalidValue;
-  return run_pass<0>(tokens, n, table, K, work, stats, static_cast<cudaStream_t>(stream));
+  return run_production(tokens, n, table, K, work, stats, static_cast<cudaStream_t>(stream));
 }
 
 // The same pass with the pieces of mask ``variant`` switched off (one of the
@@ -705,27 +941,38 @@ int zbpe_merge_pass_ablated(int* tokens, long long n, const int* table, int K, i
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((unsigned)variant) {
     case 0:
-      return run_pass<0>(tokens, n, table, K, work, stats, st);
+      return run_production(tokens, n, table, K, work, stats, st);
     case ABL_NOFAST:
-      return run_pass<ABL_NOFAST>(tokens, n, table, K, work, stats, st);
+      return run_ablated<ABL_NOFAST>(tokens, n, table, K, work, stats, st);
     case ABL_NOPARITY:
-      return run_pass<ABL_NOPARITY>(tokens, n, table, K, work, stats, st);
+      return run_ablated<ABL_NOPARITY>(tokens, n, table, K, work, stats, st);
     case ABL_NOMINKEPT:
-      return run_pass<ABL_NOMINKEPT>(tokens, n, table, K, work, stats, st);
+      return run_ablated<ABL_NOMINKEPT>(tokens, n, table, K, work, stats, st);
     case ABL_NOEDGEK:
-      return run_pass<ABL_NOEDGEK>(tokens, n, table, K, work, stats, st);
+      return run_ablated<ABL_NOEDGEK>(tokens, n, table, K, work, stats, st);
     case ABL_NOCOMPACT:
-      return run_pass<ABL_NOCOMPACT>(tokens, n, table, K, work, stats, st);
+      return run_ablated<ABL_NOCOMPACT>(tokens, n, table, K, work, stats, st);
     case ABL_NOKILLS | ABL_NOCOMPACT | ABL_NOEDGEK | ABL_NOMINKEPT:
-      return run_pass<ABL_NOKILLS | ABL_NOCOMPACT | ABL_NOEDGEK | ABL_NOMINKEPT>(
+      return run_ablated<ABL_NOKILLS | ABL_NOCOMPACT | ABL_NOEDGEK | ABL_NOMINKEPT>(
           tokens, n, table, K, work, stats, st);
     case ABL_NOSTORE:
-      return run_pass<ABL_NOSTORE>(tokens, n, table, K, work, stats, st);
+      return run_ablated<ABL_NOSTORE>(tokens, n, table, K, work, stats, st);
     case ABL_COPY:
-      return run_pass<ABL_COPY>(tokens, n, table, K, work, stats, st);
+      return run_ablated<ABL_COPY>(tokens, n, table, K, work, stats, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Blocks of the persistent grid the production pass over n tokens launches
+// with a K-slot table: the blocks that fit on the current device at once,
+// at most one a tile; -1 for arguments the pass refuses. Launches nothing.
+long long zbpe_merge_grid(long long n, int K) {
+  if (bad_args(n, K)) return -1;
+  if (K == 1) return grid_for<1, 0>(n);
+  if (K == 2) return grid_for<2, 0>(n);
+  if (K == 3) return grid_for<3, 0>(n);
+  return grid_for<4, 0>(n);
 }
 
 }  // extern "C"

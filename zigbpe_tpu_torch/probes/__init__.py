@@ -8,7 +8,8 @@ Ports of the TPU measurement scripts, each on its own kernels:
 - ``budget`` (``scripts/probe_merge_budget.py``): the merge pass with one
   piece switched off at a time (``merge_pass_ablated``), replayed over the
   first NP passes of a real training run; the differences are the pieces'
-  costs, and ``torch.profiler`` splits ``full`` into its four launches;
+  costs, and ``torch.profiler`` gives the device time of ``full``'s one
+  launch;
 - ``floor`` (``scripts/probe_floor.py``): the blocked copy
   (``copy_blocks``) against block size and dtype, the streaming floor;
 - ``pipeline`` (``scripts/probe_pipeline.py``): copies shaped like the merge
@@ -41,6 +42,32 @@ import torch
 # (NVIDIA data sheet), at a 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# Per clock on each of its 132 SMs: 64 INT32 lanes and 128 bytes of shared
+# memory (Hopper architecture white paper).
+SMS = 132
+INT32_LANES_PER_SM = 64
+SMEM_BYTES_PER_CLOCK_SM = 128
+
+
+def max_sm_clock_hz(index: int = 0) -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()
+    return float(out[index]) * 1e6
+
+
+def int32_bound_ms(ops: float, clock_hz: float) -> float:
+    """The least time for ``ops`` INT32 instructions a thread (one lane's
+    operation each) on every INT32 lane of the card at ``clock_hz``."""
+    return ops / (SMS * INT32_LANES_PER_SM * clock_hz) * 1e3
+
+
+def smem_bound_ms(nbytes: float, clock_hz: float) -> float:
+    """The least time to move ``nbytes`` through the SMs' shared memory at
+    ``clock_hz``."""
+    return nbytes / (SMS * SMEM_BYTES_PER_CLOCK_SM * clock_hz) * 1e3
 
 
 def bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:

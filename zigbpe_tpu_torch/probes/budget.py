@@ -13,7 +13,7 @@ Port of ``scripts/probe_merge_budget.py``. The protocol:
    the passes, the last pass's length and min_kept), and its delta against
    ``full``;
 5. on a CUDA device, ``torch.profiler`` over one replay of ``full`` gives
-   the device time of each of the pass's four launches.
+   the device time of the pass's one launch (``merge_kernel``).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from ..ops.kernels import merge as kmerge
 from . import device_line, spread, time_runs
 
 CORPUS = Path(__file__).resolve().parents[2] / "tests" / "data" / "taylorswift.txt"
-LAUNCHES = ("summary_kernel", "scan_kernel", "apply_kernel", "reduce_kernel")
+LAUNCHES = ("merge_kernel",)  # the pass is one launch
 
 
 def tiled_corpus(nbytes: int, corpus: Path = CORPUS) -> bytes:
@@ -55,7 +55,7 @@ def streams(data: bytes, np_passes: int, device: torch.device):
 
 
 def launch_times(replay, device: torch.device) -> dict:
-    """Device microseconds per call of each of the pass's launches in one
+    """Device microseconds per call of each kernel of ``LAUNCHES`` in one
     ``replay()``, from ``torch.profiler``; empty when it saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
