@@ -83,7 +83,14 @@ Phases, each of which must pass:
              through the encode kernel in one launch, and 4096 rows spread
              over the batch equal the twin (run on the card) and 64 rows the
              native encoder. Times the kernel and the twin on 1024 rows, the
-             kernel on the whole 1 GiB and encode_batch of the 1024 rows;
+             kernel on the whole 1 GiB and encode_batch of the 1024 rows.
+             On the 1024 rows: 20 launches from one input, each equal to the
+             first; ids >= 65536 (the byte e moved to 70101 in rows and
+             table) equal to the twin on 64 rows; and a pass split by part,
+             four tables timed in turns (dead: every new id -1, so each pass
+             is skipped; miss: pairs that never occur, so every token is
+             probed and nothing hits; the real table; parity: a == b
+             singletons), each equal to the twin on 64 rows;
 8. count   — each kernel's launch counter, zeroed just before its path
              (the probe kernels: the six probes of phase 3; merge: phases
              5-6; encode: the two encode_batch calls of phase 7), is > 0
@@ -93,6 +100,11 @@ Prints each phase's result and wall time, then a JSON line of kernels, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
 is no CUDA device or any phase fails.
+
+    python3 chip_smoke.py --encode-split
+
+builds only the encode kernel, prints its ptxas line, runs phase 4's cases
+and the pass split of phase 7 on the first 1024 serving rows, and stops.
 """
 
 from __future__ import annotations
@@ -220,6 +232,29 @@ def native_encode(lib, data: bytes, merges) -> np.ndarray:
 
 # ------------------------------------------------------------------ phases
 
+def log_ptxas(name: str, path: pathlib.Path) -> None:
+    """Print the ptxas lines (registers, shared memory, spills) of the
+    production kernels in ``path``'s build log, and the largest register
+    count and any spill of the ablated merge instantiations."""
+    ablated = []  # (registers, spill bytes, kernel)
+    for entry in path.with_suffix(".log").read_text().split("Compiling entry function")[1:]:
+        fn = re.search(r"[a-z_]+_kernel(I\w*?EE)?", entry)[0]
+        # merge.cu's kernel is a template on the slots it tests and an
+        # ablation mask: the production pass is mask 0 (Lj0E), the
+        # others are the probes'
+        if re.search(r"merge_kernelILi\dELj[1-9]\d*E", fn):
+            ablated.append((int(re.search(r"Used (\d+) registers", entry)[1]),
+                            int(re.search(r"(\d+) bytes spill stores", entry)[1]), fn))
+        else:
+            log(f"  ptxas {name} {fn}: " + "; ".join(
+                line.strip() for line in entry.splitlines()
+                if "registers" in line or "spill" in line))
+    if ablated:
+        spills = ", ".join(f"{fn} {b} B" for _, b, fn in ablated if b) or "none"
+        log(f"  ptxas {name}: {len(ablated)} ablated instantiations, at most "
+            f"{max(r for r, _, _ in ablated)} registers, spill stores: {spills}")
+
+
 def phase_build():
     from zigbpe_tpu_torch.ops.kernels import _build
 
@@ -233,23 +268,7 @@ def phase_build():
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         built = list(pool.map(timed, KERNELS))
     for name, (path, secs) in zip(KERNELS, built):
-        ablated = []  # (registers, spill bytes, kernel)
-        for entry in path.with_suffix(".log").read_text().split("Compiling entry function")[1:]:
-            fn = re.search(r"[a-z_]+_kernel(I\w*?EE)?", entry)[0]
-            # merge.cu's kernel is a template on the slots it tests and an
-            # ablation mask: the production pass is mask 0 (Lj0E), the
-            # others are the probes'
-            if re.search(r"merge_kernelILi\dELj[1-9]\d*E", fn):
-                ablated.append((int(re.search(r"Used (\d+) registers", entry)[1]),
-                                int(re.search(r"(\d+) bytes spill stores", entry)[1]), fn))
-            else:
-                log(f"  ptxas {name} {fn}: " + "; ".join(
-                    line.strip() for line in entry.splitlines()
-                    if "registers" in line or "spill" in line))
-        if ablated:
-            spills = ", ".join(f"{fn} {b} B" for _, b, fn in ablated if b) or "none"
-            log(f"  ptxas {name}: {len(ablated)} ablated instantiations, at most "
-                f"{max(r for r, _, _ in ablated)} registers, spill stores: {spills}")
+        log_ptxas(name, path)
         log(f"[build] ok: {path.relative_to(ROOT)} in {secs:.2f} s")
     log(f"[build] all {len(KERNELS)} kernels built in {time.perf_counter() - t0:.2f} s")
     return {name: secs for name, (_, secs) in zip(KERNELS, built)}
@@ -1336,8 +1355,158 @@ def phase_serving(torch, card, build_s):
     log(f"[serving] encode kernel over 1 GiB ({B} x {SERVE_ROW}): {full:.3f} ms "
         f"(mean of 3: {', '.join(f'{t:.3f}' for t in full_runs)}) = {mbps:.1f} MB/s; "
         f"dynamic shared memory {smem} B per block; build {build_s:.2f} s; {card}")
+    require(smem == 4 * ke.smem_words(SERVE_ROW, 32), "smem_words disagrees with the C side")
+
+    encode_repeat_check(torch, ke, sub, gt, gl)
+    wide_check(torch, ke, sub[:64], gt_np, gl_np)
+    encode_split(torch, sub, split_tables(data[: sub.numel()], gt_np, gl_np), card)
     return {"launches": launches, "max_abs_err": worst, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": "bytes"}
+
+
+# ------------------------------------------------------- encode pass split
+
+SPLIT_ROUNDS = 7
+SPLIT_ROWS = 1024
+
+
+def split_tables(data: bytes, gt_np: np.ndarray, gl_np: np.ndarray) -> dict:
+    """The four grouped tables that split an encode pass by part, for the
+    rows cut from ``data`` (SERVE_ROW bytes each), beside the real table
+    (``gt_np``, ``gl_np``), all of its shape [P, cap, 3]:
+
+    dead   -- the real table with every new id -1: every pass is skipped, so
+              it times the load, the store and the table staging;
+    miss   -- P groups of cap byte pairs that never stand next to each other
+              in the rows, each group's first bytes and second bytes drawn
+              from disjoint halves of the bytes present (so chain-free):
+              every token is probed and nothing hits;
+    real   -- the table itself: probes, hits and compaction;
+    parity -- P singleton groups with a == b on the bytes whose doubled pair
+              is commonest in the rows, in turn: the a == b path.
+    """
+    P, cap = gt_np.shape[:2]
+    d = np.frombuffer(data, np.uint8).reshape(-1, SERVE_ROW).astype(np.int64)
+    pairs = np.bincount((d[:, :-1] * 256 + d[:, 1:]).ravel(), minlength=65536).reshape(256, 256)
+    present = np.flatnonzero(np.bincount(d.ravel(), minlength=256))
+    dead = gt_np.copy()
+    dead[..., 2] = -1
+    rng = np.random.default_rng(8)
+    miss = np.full((P, cap, 3), -1, np.int32)
+    for p in range(P):
+        side = rng.random(len(present)) < 0.5
+        never = [(a, b) for a in present[side] for b in present[~side] if pairs[a, b] == 0]
+        pick = np.asarray(never, np.int32)[rng.choice(len(never), cap, replace=False)]
+        miss[p, :, :2] = pick
+        miss[p, :, 2] = 256 + p * cap + np.arange(cap)
+    doubled = np.diagonal(pairs)
+    runs = np.argsort(-doubled, kind="stable")[: min(8, np.count_nonzero(doubled))]
+    parity = np.full((P, cap, 3), -1, np.int32)
+    for p in range(P):
+        b = int(runs[p % len(runs)])
+        parity[p, 0] = (b, b, 256 + p)
+    full, one = np.full(P, cap, np.int32), np.ones(P, np.int32)
+    return {"dead": (dead, gl_np), "miss": (miss, full), "real": (gt_np, gl_np),
+            "parity": (parity, one)}
+
+
+def encode_split(torch, rows, tables: dict, card: str, check_rows: int = 64) -> dict:
+    """Each table of ``tables`` (name -> (gtable, glens) numpy) through the
+    encode kernel over ``rows`` (a [B, L] int32 tensor on the card): the
+    kernel equals its twin on ``check_rows`` rows spread over the batch, then
+    the tables are timed in turns, SPLIT_ROUNDS rounds after a warm-up, one
+    call each with CUDA events. Prints and returns name -> (median, min, max)
+    ms, and the differences a pass: probes (miss - dead), hits and
+    compaction (real - miss), the a == b path (parity - dead)."""
+    from zigbpe_tpu_torch.ops.kernels import encode as ke
+
+    dev = {name: (torch.from_numpy(gt).cuda(), torch.from_numpy(gl).cuda())
+           for name, (gt, gl) in tables.items()}
+    idx = torch.from_numpy(np.unique(np.linspace(0, rows.shape[0] - 1, check_rows)
+                                     .astype(np.int64))).cuda()
+    for name, (gt, gl) in dev.items():
+        out, lens = ke.encode_rows_grouped(rows, gt, gl)
+        tw_out, tw_len = ke.encode_rows_grouped_reference(rows[idx], gt, gl)
+        err = max(int((tw_out - out[idx]).abs().max()), int((tw_len - lens[idx]).abs().max()))
+        require(err == 0, f"encode kernel != twin on the {name} table (max_abs_err {err})")
+    del out, lens
+    times = {name: [] for name in dev}
+    for _ in range(SPLIT_ROUNDS + 1):
+        for name, (gt, gl) in dev.items():
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            ke.encode_rows_grouped(rows, gt, gl)
+            e1.record()
+            e1.synchronize()
+            times[name].append(e0.elapsed_time(e1))
+    result = {name: (statistics.median(t[1:]), min(t[1:]), max(t[1:]))
+              for name, t in times.items()}
+    B, L = rows.shape
+    P = next(iter(tables.values()))[0].shape[0]
+    for name, (med, lo, hi) in result.items():
+        log(f"[split] {name:6s} {med:.4f} ms (median of {SPLIT_ROUNDS}, {lo:.4f}-{hi:.4f}); "
+            f"{B} rows x {L}, P={P}; kernel == twin on {len(idx)} rows")
+    us = {k: v[0] * 1e3 / P for k, v in result.items()}
+    log(f"[split] a pass over the batch: probes (miss - dead) {us['miss'] - us['dead']:.2f} us, "
+        f"hits and compaction (real - miss) {us['real'] - us['miss']:.2f} us, a == b path "
+        f"(parity - dead) {us['parity'] - us['dead']:.2f} us; load, store and staging (dead) "
+        f"{result['dead'][0]:.4f} ms in all; {card}")
+    return result
+
+
+def split_main(torch, card: str) -> int:
+    """``python3 chip_smoke.py --encode-split``: build the encode kernel,
+    print its ptxas line, hold it to its twin and the oracle on the cases
+    of phase 4, and split a pass by part on the serving rows (SPLIT_ROWS
+    rows of config 3's 1 GiB, its table scheduled at cap 32)."""
+    from zigbpe_tpu_torch.ops import core
+    from zigbpe_tpu_torch.ops.kernels import _build, encode as ke
+
+    log_ptxas("encode", _build.build("encode"))
+    phase_encode_kernel(torch)
+    data = tiled_corpus(SPLIT_ROWS * SERVE_ROW)
+    table = native_train(native_library(), data[:SERVE_TABLE_BYTES], 256 + SERVE_MERGES)
+    gt_np, gl_np = ke.schedule_merges(np.asarray(table, np.int32), cap=32)
+    rows = core.pad_tokens(data, len(data), "cuda")[0].view(SPLIT_ROWS, SERVE_ROW)
+    encode_split(torch, rows, split_tables(data, gt_np, gl_np), card)
+    return 0
+
+
+REPEATS = 20
+
+
+def encode_repeat_check(torch, ke, rows, gt, gl) -> None:
+    """REPEATS launches on one input, each equal to the first (a race
+    between warps, or in the staging, would show as a difference)."""
+    first, first_len = ke.encode_rows_grouped(rows, gt, gl)
+    for i in range(REPEATS - 1):
+        out, lens = ke.encode_rows_grouped(rows, gt, gl)
+        require(torch.equal(out, first) and torch.equal(lens, first_len),
+                f"encode kernel: repeat {i + 1} of {REPEATS} differs from the first")
+    log(f"[serving] ok: {REPEATS} launches on {rows.shape[0]} rows x {rows.shape[1]} "
+        f"are equal")
+
+
+WIDE = 70000  # an id offset past 65535
+
+
+def wide_check(torch, ke, rows, gt_np, gl_np) -> None:
+    """Ids >= 65536: the byte ``e`` becomes WIDE + 101 in the rows and in the
+    table's pairs, so groups that hold it take the linear-probing table and
+    the others probe with the width test; kernel == twin (run on the card)."""
+    e = ord("e")
+    wrows = torch.where(rows == e, rows + WIDE, rows)
+    gt_w = gt_np.copy()
+    pairs = gt_w[..., :2]
+    pairs[pairs == e] += WIDE
+    gt, gl = torch.from_numpy(gt_w).cuda(), torch.from_numpy(gl_np).cuda()
+    out, lens = ke.encode_rows_grouped(wrows, gt, gl)
+    tw_out, tw_len = ke.encode_rows_grouped_reference(wrows, gt, gl)
+    err = max(int((tw_out - out).abs().max()), int((tw_len - lens).abs().max()))
+    require(err == 0, f"encode kernel != twin with ids >= 65536 (max_abs_err {err})")
+    require(bool((out >= WIDE).any()), "the wide-id rows kept no wide id")
+    log(f"[serving] ok: ids >= 65536 (e -> {WIDE + e}) on {rows.shape[0]} rows: kernel == "
+        f"twin, max_abs_err {err}")
 
 
 def run_phase(name, fn, *args):
@@ -1356,6 +1525,8 @@ def main() -> int:
         return 2
     card = card_line()
     log(card)
+    if sys.argv[1:] == ["--encode-split"]:
+        return split_main(torch, card)
     from zigbpe_tpu_torch.ops.kernels import encode as ke, merge as km
 
     t_all = time.perf_counter()
