@@ -72,7 +72,23 @@ Phases, each of which must pass:
              (zigbpe_tpu/native/fastio.cpp, built with g++ and called by
              path); the 32 MiB corpus encoded on the card equals the native
              encoder's ids;
-7. serving — BASELINE.json config 3: a 1024-merge table trained by the
+7. sorted  — training past LAZY_VOCAB_MAX (sort-based selection, one
+             K = 1 merge pass a round): BasicTokenizer(device="cuda") trains
+             the conformance corpus to vocab 32768, exactly the native C++
+             trainer's 32512 merges (computed on a thread from the end of
+             phase 1); the corpus encodes on the card and decodes back, and
+             its first 16 KiB encode to the native encoder's ids. The same
+             training with a checkpoint directory, its checkpoint then
+             rewound to 16000 merges and resumed on the card, and with
+             detailed_stats (its sort_pairs / replace_pairs report printed)
+             each give the same merges. The corpus tiled to 32 MiB trains to
+             vocab 32768 (timed: MB/s, ms a merge, merge passes), and its
+             first 256 merges equal phase 6's, which the lazy path chose.
+             One selection is timed three ways on 32768 tokens and on the
+             32 MiB: the port's (torch.unique counts the runs), the JAX
+             function's cummax over run starts, and a binary search for
+             each run's start; all three must agree;
+8. serving — BASELINE.json config 3: a 1024-merge table trained by the
              native trainer on the first 1 MiB, scheduled with
              schedule_merges(cap=32). BasicTokenizer(device="cuda")
              .encode_batch on the corpus cut into 101 documents (L = 16384)
@@ -91,10 +107,10 @@ Phases, each of which must pass:
              is skipped; miss: pairs that never occur, so every token is
              probed and nothing hits; the real table; parity: a == b
              singletons), each equal to the twin on 64 rows;
-8. count   — each kernel's launch counter, zeroed just before its path
+9. count   — each kernel's launch counter, zeroed just before its path
              (the probe kernels: the six probes of phase 3; merge: phases
-             5-6; encode: the two encode_batch calls of phase 7), is > 0
-             just after it.
+             5-6, and again phase 7; encode: the two encode_batch calls of
+             phase 8), is > 0 just after it.
 
 Prints each phase's result and wall time, then a JSON line of kernels, the
 card's name and power limit, and as the last line
@@ -104,7 +120,7 @@ is no CUDA device or any phase fails.
     python3 chip_smoke.py --encode-split
 
 builds only the encode kernel, prints its ptxas line, runs phase 4's cases
-and the pass split of phase 7 on the first 1024 serving rows, and stops.
+and the pass split of phase 8 on the first 1024 serving rows, and stops.
 """
 
 from __future__ import annotations
@@ -141,6 +157,10 @@ SERVE_ROW = 32768       # ... as rows of 32768 tokens ...
 SERVE_MERGES = 1024     # ... under a frozen 1K-merge table
 SERVE_TABLE_BYTES = 1 << 20  # trained on the first 1 MiB, as bench.py does
 SERVE_DOCS = 1024       # config 3's rows sent through encode_batch
+SORTED_VOCAB = 32768    # past LAZY_VOCAB_MAX: Mistral-7B-v0.3's vocab_size
+SORTED_SCALE_BYTES = 32 << 20  # the tiled corpus trained to SORTED_VOCAB
+SORTED_HEAD_BYTES = 16 << 10   # encoded on the card against the native encoder
+SORTED_RESUME_AT = 16000       # merges kept when the checkpoint is rewound
 KERNELS = ("merge", "encode", "copy", "opmix", "hist", "lowering")
 
 
@@ -190,6 +210,12 @@ def first_group(merges, K: int = 4):
         if ok:
             return [list(m) for m in g]
     raise PhaseError("no valid 4-merge group in the trained table")
+
+
+def first_difference(got, want) -> int:
+    """Index of the first merge at which two merge lists differ."""
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                min(len(got), len(want)))
 
 
 # ------------------------------------------------------------------ native
@@ -1080,6 +1106,144 @@ def phase_scale(torch, card):
     log(f"[scale] ok: 256 merges == native C++ trainer ({nat_train_s:.1f} s, "
         f"{mb / nat_train_s:.2f} MB/s one core), ids == native encoder "
         f"({nat_enc_s:.1f} s)")
+    return tok.merges
+
+
+def sync_free_select(torch, tokens, V: int, runs: str):
+    """select_top_pair_sorted without a wait on the device, for timing
+    beside the port's: the sorted packed keys' run lengths from a cummax
+    over run starts (``runs="cummax"``, the JAX function's formulation) or
+    from a binary search for each run's start (``"searchsorted"``); V*V
+    must fit int32."""
+    from zigbpe_tpu_torch.ops import core
+
+    invalid = 2**31 - 1
+    a, b = core.pair_streams(tokens, 128)
+    s = torch.sort(torch.where(b >= 0, a * V + b, invalid)).values
+    idx = torch.arange(s.shape[0], device=s.device)
+    boundary = s[1:] != s[:-1]
+    one = boundary.new_ones(1)
+    if runs == "cummax":
+        start = torch.cummax(torch.where(torch.cat([one, boundary]), idx, -1), 0).values
+    else:
+        start = torch.searchsorted(s, s)
+    run = torch.where(torch.cat([boundary, one]) & (s != invalid), idx + 1 - start, 0)
+    count = run.max()
+    top = torch.where(run == count, s, -1).max()
+    return top // V, top % V, count
+
+
+def phase_sorted(torch, card, lazy_merges, native_32768):
+    """Training past LAZY_VOCAB_MAX, where each round sorts the stream's
+    pairs: the conformance corpus to vocab 32768 plainly, resumed from a
+    rewound checkpoint and with the detailed split, each exactly the native
+    trainer's merges (``native_32768``, a future computing them); then the
+    tiled corpus to vocab 32768, whose first 256 merges must equal the lazy
+    path's (``lazy_merges``, phase 6's)."""
+    from zigbpe_tpu_torch import BasicTokenizer, train
+    from zigbpe_tpu_torch.ops import core
+    from zigbpe_tpu_torch.ops.kernels import merge as km
+    from zigbpe_tpu_torch.utils import checkpoint
+    from zigbpe_tpu_torch.utils.profiling import TimeStats
+
+    V = SORTED_VOCAB
+    require(V > train.LAZY_VOCAB_MAX, "the sorted phase must train past LAZY_VOCAB_MAX")
+    corpus = CORPUS.read_bytes()
+    lib = native_library()
+
+    # (a) conformance: the native trainer's merges, encode on the card
+    t0 = time.perf_counter()
+    tok = BasicTokenizer(device="cuda").train(corpus, V)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    want = native_32768.result()
+    wait_s = time.perf_counter() - t1
+    require(len(want) == V - 256, f"native trainer gave {len(want)} merges")
+    require(tok.merges == want, "card merges differ from the native C++ trainer's from "
+            f"merge {first_difference(tok.merges, want)}")
+    ids = tok.encode(corpus, backend="device")
+    require(tok.decode(ids) == corpus, "decode does not give back the corpus")
+    head = corpus[:SORTED_HEAD_BYTES]
+    head_ids = tok.encode(head, backend="device")
+    require(np.array_equal(np.asarray(head_ids, np.int32), native_encode(lib, head, want)),
+            "card encode of the first 16 KiB differs from the native encoder's")
+    log(f"[sorted] ok: {len(corpus)} bytes to vocab {V}: {len(want)} merges == "
+        f"native C++ trainer in {plain_s:.3f} s on the card ({plain_s / len(want) * 1e3:.3f} "
+        f"ms/merge; native finished {wait_s:.1f} s later); corpus -> {len(ids)} tokens, "
+        f"decode round trip; first {SORTED_HEAD_BYTES} bytes -> {len(head_ids)} ids == "
+        f"native encoder; {card}")
+
+    # (b) resume: a checkpointed run, its checkpoint rewound part-way as
+    # tests/test_checkpoint.py simulates a crash, resumed on the card
+    with tempfile.TemporaryDirectory() as ck:
+        t2 = time.perf_counter()
+        got = BasicTokenizer(device="cuda").train(corpus, V, checkpoint_dir=ck).merges
+        ck_s = time.perf_counter() - t2
+        require(got == want, "checkpointed run differs from the native merges")
+        saved, _, vocab, occ = checkpoint.load(ck)
+        require(vocab == V and len(saved) > SORTED_RESUME_AT, f"checkpoint holds {len(saved)}")
+        checkpoint.save(ck, saved[:SORTED_RESUME_AT],
+                        native_encode(lib, corpus, want[:SORTED_RESUME_AT]), V,
+                        occ[:SORTED_RESUME_AT])
+        t3 = time.perf_counter()
+        resumed = BasicTokenizer(device="cuda").train(corpus, V, checkpoint_dir=ck).merges
+        resume_s = time.perf_counter() - t3
+        require(resumed == want, "resumed run differs from the native merges")
+    log(f"[sorted] ok: checkpointed run ({ck_s:.3f} s, {len(saved)} merges in its last "
+        f"checkpoint) and a run resumed at merge {SORTED_RESUME_AT} ({resume_s:.3f} s) == "
+        f"native C++ trainer; {card}")
+
+    # (c) the detailed split: per-round phases, device-synced
+    stats = TimeStats()
+    tok = BasicTokenizer(device="cuda")
+    tok.time_stats = stats
+    t4 = time.perf_counter()
+    tok.train(corpus, V, detailed_stats=True)
+    detailed_s = time.perf_counter() - t4
+    require(tok.merges == want, "detailed run differs from the native merges")
+    for line in stats.report().splitlines():
+        log(f"[sorted]   {line.strip()}")
+    sort_ms = stats.phases["sort_pairs"].total_s * 1e3
+    repl_ms = stats.phases["replace_pairs"].total_s * 1e3
+    rounds = stats.phases["sort_pairs"].calls
+    log(f"[sorted] ok: detailed run == native ({detailed_s:.3f} s): per round sort_pairs "
+        f"{sort_ms / rounds:.4f} ms, replace_pairs {repl_ms / rounds:.4f} ms "
+        f"(sort {sort_ms / (sort_ms + repl_ms):.3f} of the two); {card}")
+
+    # (d) scale: the tiled corpus to vocab V
+    data = tiled_corpus(SORTED_SCALE_BYTES)
+    mb = len(data) / 1e6
+    passes0 = km.merge_pass_multi.launches
+    t5 = time.perf_counter()
+    tok = BasicTokenizer(device="cuda").train(data, V)
+    torch.cuda.synchronize()
+    scale_s = time.perf_counter() - t5
+    passes = km.merge_pass_multi.launches - passes0
+    require(len(tok.merges) == V - 256, f"{len(tok.merges)} merges on the tiled corpus")
+    require(tok.merges[:len(lazy_merges)] == lazy_merges,
+            "the sorted path's first merges differ from the lazy path's")
+    log(f"[sorted] card training: {mb:.3f} MB to vocab {V}: {scale_s:.3f} s = "
+        f"{mb / scale_s:.2f} MB/s, {passes} merge passes, "
+        f"{scale_s / (V - 256) * 1e3:.3f} ms/merge; first {len(lazy_merges)} merges == the "
+        f"lazy path's (phase 6); {card}")
+
+    # one selection, the port's (torch.unique counts the runs and waits on
+    # the device for their number) against two that never wait, on the
+    # corpus's head (the size of most rounds) and the tiled corpus
+    forms = {"unique": lambda t: core.select_top_pair_sorted(t, V, 128),
+             "cummax": lambda t: sync_free_select(torch, t, V, "cummax"),
+             "searchsorted": lambda t: sync_free_select(torch, t, V, "searchsorted")}
+    for stream in (corpus[:train.MIN_CAPACITY], data):
+        tokens, _ = core.pad_tokens(stream, len(stream), "cuda")
+        got = torch.stack(forms["unique"](tokens)).tolist()
+        ms = {}
+        for name, fn in forms.items():
+            require(torch.stack(fn(tokens)).tolist() == got, f"{name} selection disagrees")
+            ms[name] = statistics.fmean(time_runs(lambda: fn(tokens), tokens.device, 3))
+        log(f"[sorted] one selection over {len(stream)} tokens ({tuple(got)}), ms a call "
+            "(CUDA events, mean of 3): " + ", ".join(f"{n} {t:.4f}" for n, t in ms.items())
+            + f"; {card}")
 
 
 # ------------------------------------------------------ encode kernel cases
@@ -1531,6 +1695,11 @@ def main() -> int:
 
     t_all = time.perf_counter()
     build_s = run_phase("build", phase_build)
+    # the native trainer takes most of a minute on one core for the sorted
+    # phase's merges (it releases the interpreter lock): start it now
+    native_pool = ThreadPoolExecutor(1)
+    native_32768 = native_pool.submit(native_train, native_library(), CORPUS.read_bytes(),
+                                      SORTED_VOCAB)
     # a real K=4 group: the golden run's trained table
     golden = [tuple(int(v) for v in line.split(",")) for line in GOLDEN.read_text().split()]
     group = first_group(golden)
@@ -1543,14 +1712,20 @@ def main() -> int:
 
     km.merge_pass_multi.launches = 0
     run_phase("golden", phase_golden, torch)
-    run_phase("scale", phase_scale, torch, card)
+    lazy_merges = run_phase("scale", phase_scale, torch, card)
     launches = km.merge_pass_multi.launches
+    km.merge_pass_multi.launches = 0
+    run_phase("sorted", phase_sorted, torch, card, lazy_merges, native_32768)
+    sorted_launches = km.merge_pass_multi.launches
+    native_pool.shutdown()
     serving = run_phase("serving", phase_serving, torch, card, build_s["encode"])
     require(launches > 0, "the merge kernel never launched on the train/encode path")
+    require(sorted_launches > 0, "the merge kernel never launched on the sorted training path")
     require(serving["launches"] > 0, "the encode kernel never launched on the serving path")
     for name, row in probes.items():
         require(row["launches"] > 0, f"{name} never launched on the probes' path")
-    log(f"[count] ok: merge kernel launched {launches} times on the train/encode path, "
+    log(f"[count] ok: merge kernel launched {launches} times on the train/encode path and "
+        f"{sorted_launches} on the sorted training path, "
         f"encode kernel {serving['launches']} times on the encode_batch path; on the "
         f"probes' path " + ", ".join(f"{n} {r['launches']}" for n, r in probes.items()))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -1563,7 +1738,8 @@ def main() -> int:
         "name": "merge_pass_multi", "route": "cuda",
         "source": "zigbpe_tpu_torch/csrc/merge.cu",
         "replaces": "zigbpe_tpu/ops/pallas/merge.py:222",
-        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+        "launches": launches + sorted_launches, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain,
         "bound_ms": pass_bound, "bound_by": pass_by, "library_ms": None,
     }, {
         "name": ke.encode_rows_grouped.__name__, "route": "cuda",

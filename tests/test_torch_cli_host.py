@@ -100,3 +100,48 @@ def test_host_backends_take_an_explicit_device_too(tmp_path, capsys):
     assert cli.main(args) == 0
     assert [int(i) for i in capsys.readouterr().out.split()] == oracle.encode(
         b"hello", oracle.train(TEXT, 300))
+
+
+@pytest.mark.parametrize("flag", ["--checkpoint-dir", "--time-stats-detailed"])
+def test_train_checkpoint_and_detailed_flags_on_the_cpu(tmp_path, capsys, flag):
+    """``train --checkpoint-dir`` writes a checkpoint that a second run
+    resumes from; ``--time-stats-detailed`` prints the report with the
+    sort/replace split, as ``--time-stats`` prints it in the JAX CLI."""
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(TEXT)
+    m = tmp_path / "m.txt"
+    args = ["train", str(corpus), "--vocab", "300", "--out", str(m), "--backend", "device",
+            "--device", "cpu", "--chunk-rounds", "4", flag]
+    if flag == "--checkpoint-dir":
+        args.append(str(tmp_path / "ck"))
+    assert cli.main(args) == 0
+    assert serde.load(m) == oracle.train(TEXT, 300)
+    report = capsys.readouterr().out
+    assert ("Time statistics:" in report) == (flag == "--time-stats-detailed")
+    if flag == "--checkpoint-dir":
+        saved = serde.load(tmp_path / "ck" / "merges.txt")  # after every 4th chunk
+        assert 0 < len(saved) < len(serde.load(m)) and saved == serde.load(m)[: len(saved)]
+        assert cli.main(args) == 0  # resumes from the checkpoint
+        assert serde.load(m) == oracle.train(TEXT, 300)
+    else:
+        assert "sort_pairs" in report and "replace_pairs" in report
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], (None, "host", "cpu")),
+    (["--merges", "m.txt"], ("m.txt", "host", "cpu")),
+    (["--merges", "m.txt", "--backend", "oracle"], ("m.txt", "oracle", "cpu")),
+    (["--merges", "m.txt", "--backend", "device"], ("m.txt", "device", "cuda")),
+    (["--merges", "m.txt", "--backend", "device", "--device", "cpu"],
+     ("m.txt", "device", "cpu")),
+])
+def test_gui_arguments(monkeypatch, argv, want):
+    """``gui`` encodes on the host under ``auto``, as the JAX shell does,
+    and builds its tokenizer on ``--device`` only for the device backend."""
+    from zigbpe_tpu_torch.gui import app
+
+    seen = []
+    monkeypatch.setattr(app, "run", lambda path, backend, device: seen.append(
+        (path, backend, device)))
+    assert cli.main(["gui", *argv]) == 0
+    assert seen == [want]

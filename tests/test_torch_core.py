@@ -255,3 +255,17 @@ def test_time_stats_copy_matches():
         ]
         assert not mod.TimeStats.null().phases
     assert stats[j_profiling] == stats[t_profiling]
+
+
+def test_profiling_trace_writes_a_trace_file(tmp_path):
+    """``trace`` (the counterpart of the JAX package's jax.profiler trace)
+    writes a torch.profiler trace of the block into its log directory."""
+    import json
+
+    log_dir = tmp_path / "trace"
+    with t_profiling.trace(log_dir):
+        tcore.select_top_pair_sorted(_t(STREAMS["global"]()), V)
+    files = list(log_dir.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any("sort" in str(e.get("name", "")) for e in events)

@@ -34,7 +34,8 @@ MODULES = [
     "zigbpe_tpu_torch.probes.pipeline", "zigbpe_tpu_torch.ops.kernels.opmix",
     "zigbpe_tpu_torch.ops.kernels.hist", "zigbpe_tpu_torch.ops.kernels.lowering",
     "zigbpe_tpu_torch.probes.alu16", "zigbpe_tpu_torch.probes.hist",
-    "zigbpe_tpu_torch.probes.lowering",
+    "zigbpe_tpu_torch.probes.lowering", "zigbpe_tpu_torch.utils.checkpoint",
+    "zigbpe_tpu_torch.gui", "zigbpe_tpu_torch.gui.app",
 ]
 
 

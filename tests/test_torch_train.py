@@ -7,6 +7,8 @@ differently in the two frameworks, which changes bounds but never the
 merges, occupancies, k, length or logical stream.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -18,6 +20,8 @@ from zigbpe_tpu_torch import BasicTokenizer
 from zigbpe_tpu_torch import train as t_train
 from zigbpe_tpu_torch.ops import core as tcore
 from zigbpe_tpu_torch.utils.state import TrainState
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 def _chained_state():
@@ -120,12 +124,42 @@ def test_train_shrinks_capacity():
     assert t_train.train(data, 262, chunk_rounds=1, device="cpu") == oracle.train(data, 262)
 
 
-@pytest.mark.parametrize("kw", [{"checkpoint_dir": "ck"}, {"detailed_stats": True}])
-def test_train_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_train.train(b"hello", 300, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_train.train(b"hello", t_train.LAZY_VOCAB_MAX + 1, device="cpu")
+@pytest.mark.parametrize("kw", [
+    {"checkpoint_dir": "ck"}, {"detailed_stats": True},
+    {"vocab_size": t_train.LAZY_VOCAB_MAX + 1},
+])
+def test_train_unported_options_raise(kw, tmp_path):
+    """The options that once raised NotImplementedError (a checkpoint
+    directory, the detailed split, a vocab past LAZY_VOCAB_MAX) now train
+    to the oracle's merges."""
+    data = b"hello world, hello there " * 20
+    kw = dict(kw)
+    vocab = kw.pop("vocab_size", 300)
+    if "checkpoint_dir" in kw:
+        kw["checkpoint_dir"] = str(tmp_path / kw["checkpoint_dir"])
+    assert t_train.train(data, vocab, device="cpu", **kw) == oracle.train(data, vocab)
+
+
+@pytest.mark.parametrize("vocab", [300, 9000], ids=["lazy", "sorted"])
+def test_detailed_stats_matches_jax(vocab, capsys):
+    """The instrumented per-round loop gives the chunk loop's merges and
+    the JAX trainer's phase names: count_pairs (the ub seed, lazy only),
+    sort_pairs and replace_pairs."""
+    from zigbpe_tpu.utils.profiling import TimeStats as JStats
+    from zigbpe_tpu_torch.utils.profiling import TimeStats
+
+    data = (REPO / "tests" / "data" / "taylorswift.txt").read_bytes()[:2000]
+    if vocab > t_train.LAZY_VOCAB_MAX:
+        data = data[:300]
+    want = oracle.train(data, vocab)
+    ts, js = TimeStats(), JStats()
+    got = t_train.train(data, vocab, detailed_stats=True, stats=ts, device="cpu")
+    assert got == want == t_train.train(data, vocab, device="cpu")
+    assert j_train.train(data, vocab, detailed_stats=True, stats=js) == want
+    assert list(ts.phases) == list(js.phases)
+    assert "sort_pairs" in ts.phases and "replace_pairs" in ts.phases
+    assert ("count_pairs" in ts.phases) == (vocab <= t_train.LAZY_VOCAB_MAX)
+    assert ts.phases["replace_pairs"].calls == len(want)
 
 
 def test_golden_merges_on_cpu(corpus_bytes, golden_merges):

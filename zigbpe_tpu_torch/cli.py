@@ -1,6 +1,7 @@
 """Command-line interface of the PyTorch port: train / encode / decode /
-demo, with the same flags and output formats as ``zigbpe_tpu.cli`` plus
-``--device`` (default ``cuda``). The tokenizer is built on ``--device`` only
+gui / demo, with the same flags and output formats as ``zigbpe_tpu.cli``
+(except its data-parallel and multi-host options) plus ``--device``
+(default ``cuda``). The tokenizer is built on ``--device`` only
 when the chosen backend reaches it; the host backends run on the CPU, so
 they need no card.
 
@@ -39,7 +40,13 @@ def cmd_train(args) -> int:
     backend = "device" if args.backend == "auto" else args.backend
     tok = BasicTokenizer(device=_device(args, backend))
     t0 = time.time()
-    kwargs = {"chunk_rounds": args.chunk_rounds} if backend == "device" else {}
+    kwargs = {}
+    if backend == "device":
+        kwargs["chunk_rounds"] = args.chunk_rounds
+        if args.checkpoint_dir:
+            kwargs["checkpoint_dir"] = args.checkpoint_dir
+        if args.time_stats_detailed:
+            kwargs["detailed_stats"] = True
     tok.train(data, args.vocab, verbose=args.verbose, backend=backend, **kwargs)
     wall = time.time() - t0
     tok.save_merges(args.out)
@@ -48,7 +55,7 @@ def cmd_train(args) -> int:
         f"({len(data) / max(wall, 1e-9) / 1e6:.1f} MB/s) -> {args.out}",
         file=sys.stderr,
     )
-    if args.time_stats:
+    if args.time_stats or args.time_stats_detailed:
         tok.time_stats.print_report()
     return 0
 
@@ -73,6 +80,16 @@ def cmd_decode(args) -> int:
         ids = [int(t) for t in args.ids.replace(",", " ").split()]
     sys.stdout.buffer.write(tok.decode(ids))
     sys.stdout.buffer.write(b"\n")
+    return 0
+
+
+def cmd_gui(args) -> int:
+    """The interactive shell; ``auto`` encodes on the host, as the JAX
+    package's shell does."""
+    from .gui import app
+
+    backend = "host" if args.backend == "auto" else args.backend
+    app.run(args.merges, backend=backend, device=_device(args, backend))
     return 0
 
 
@@ -103,6 +120,12 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--verbose", action="store_true")
     t.add_argument("--chunk-rounds", type=int, default=64)
     t.add_argument("--time-stats", action="store_true")
+    t.add_argument(
+        "--time-stats-detailed", action="store_true",
+        help="per-round sort/replace device-time split (reference "
+        "TimeStats taxonomy; slower: syncs every round)",
+    )
+    t.add_argument("--checkpoint-dir", help="write/resume mid-training checkpoints here")
     _add_common(t)
     t.set_defaults(fn=cmd_train)
 
@@ -120,6 +143,11 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--ids", help="ids, space- or comma-separated")
     g.add_argument("--file", help="file of whitespace-separated ids")
     d.set_defaults(fn=cmd_decode)
+
+    g = sub.add_parser("gui", help="interactive tokenizer shell (reference GUI analogue)")
+    g.add_argument("--merges", help="merge table; omitted = mirror-only (reference parity)")
+    _add_common(g)
+    g.set_defaults(fn=cmd_gui)
 
     m = sub.add_parser("demo", help="reference demo: train + probe round-trip")
     m.add_argument("--corpus", default="taylorswift.txt")

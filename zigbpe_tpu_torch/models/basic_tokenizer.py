@@ -73,6 +73,10 @@ class BasicTokenizer:
 
         backend: 'device' (the PyTorch path on this tokenizer's device),
         'host' (NumPy), 'oracle' (pure Python), or 'auto' (= device).
+        The device backend passes ``kwargs`` on to :func:`train.train`
+        (``chunk_rounds``, ``checkpoint_dir``, ``checkpoint_every_chunks``,
+        ``resume``, ``detailed_stats``, ...) and times its phases into
+        ``self.time_stats``.
         """
         if isinstance(text, str):
             text = text.encode("utf-8")

@@ -5,17 +5,19 @@ on the tensors' device; the port's token stream is always in the merge
 kernel's row-local layout (``ops/kernels/merge.py``), so ``layout_block``
 is ``LAYOUT`` wherever a stream may have been through a merge pass.
 
-* Top-pair selection is lazy: upper bounds on every pair count (``ub``)
-  are popped and verified against the stream in batches
+* Top-pair selection up to vocab 8192 is lazy: upper bounds on every pair
+  count (``ub``) are popped and verified against the stream in batches
   (``select_top_pair_lazy``) until the table's argmax is exact; the dense
-  histogram (``pair_histogram``) only seeds ``ub``. Every selection
-  realises the same tie-break: the largest (first, second) wins among equal
-  counts, which reproduces the reference's one golden tie.
+  histogram (``pair_histogram``) only seeds ``ub``. Above it the V*V table
+  is too large, and each round sorts the stream's pairs instead
+  (``select_top_pair_sorted``, ``train_chunk``). Every selection realises
+  the same tie-break: the largest (first, second) wins among equal counts,
+  which reproduces the reference's one golden tie.
 * Leftmost-greedy overlap resolution (``aaa`` + (a,a)->X gives [X, a]) is
   a ``cummax`` parity over candidate runs, inside the merge pass.
 * Loops the JAX package runs as ``lax.while_loop``/``lax.cond`` are Python
   control flow here, with one host sync per verify iteration and per merge
-  group.
+  group (two per round on the sorted path).
 
 Where the JAX code donates a buffer, the port updates it in place; each
 function says so.
@@ -125,6 +127,41 @@ def select_top_pair(hist: torch.Tensor, vocab_size: int):
     ids = torch.arange(hist.shape[0], device=hist.device)
     top = torch.where(hist == max_count, ids, -1).max()
     return top // V, top % V, max_count
+
+
+def select_top_pair_sorted(tokens: torch.Tensor, vocab_size: int,
+                           layout_block: int | None = None):
+    """Argmax pair straight from the stream: sort the packed pair keys and
+    count each run, then break ties on the largest (first, second). No
+    histogram. Returns 0-d tensors (first, second, count); count 0 means no
+    pairs exist (first and second are then meaningless).
+
+    A key packs (first, second) in sort order: ``first * V + second`` in
+    int32 while V*V fits, else ``first << 18 | second`` in int64 (int32
+    would overflow for V > 46341). Invalid pairs take a key above every
+    valid one. The JAX function takes run lengths from a cummax over run
+    starts; here ``torch.unique`` counts the runs (a keys-only radix sort
+    and a run-length encode on a card), because ``torch.cummax`` of a 1-D
+    tensor scans on one block of the card: at 2^25 tokens it takes about
+    fifty times this whole selection (``chip_smoke.py``'s sorted phase
+    times both; PERF.md). It waits on the device once, for the number of
+    runs.
+    """
+    V = vocab_size
+    a, b = pair_streams(tokens, layout_block)
+    wide = V * V >= 2**31
+    if wide:
+        key, invalid = (a.long() << 18) | b.long(), 1 << 36
+    else:
+        key, invalid = a * V + b, 2**31 - 1
+    keys, counts = torch.unique(torch.where(b >= 0, key, invalid), sorted=True,
+                                return_counts=True)
+    counts = torch.where(keys != invalid, counts, 0)
+    count = counts.max()
+    top = torch.where(counts == count, keys, -1).max()
+    if wide:
+        return top >> 18, top & ((1 << 18) - 1), count
+    return top // V, top % V, count
 
 
 def count_pair(tokens: torch.Tensor, first, second,
@@ -392,6 +429,38 @@ def train_chunk_lazy(tokens: torch.Tensor, length: int, ub: torch.Tensor,
         occupancy[k: k + g] = torch.tensor(cnts[:g], dtype=torch.int32, device=dev)
         k += g
     return tokens, L, ub, merges, occupancy, k, flag
+
+
+
+def train_chunk(tokens: torch.Tensor, length: int, merges: torch.Tensor,
+                occupancy: torch.Tensor, num_merges: int, vocab_size: int,
+                max_rounds: int):
+    """Run up to ``max_rounds`` merge rounds (or to the target vocab, early
+    stop, or a drained row) with sort-based selection, on a stream in
+    row-local layout: each round is one ``select_top_pair_sorted`` and one
+    K = 1 merge pass, whose one-row table is built on the device from the
+    selected pair. Two host syncs a round: the selection's count of runs,
+    and one read of the pass's stats. A stream of length >= 2 always holds
+    a pair, so every round merges.
+
+    ``tokens`` (through the merge pass), ``merges`` and ``occupancy`` are
+    updated IN PLACE. Returns (tokens, length, merges, occupancy, k,
+    needs_compact) with Python ints for length, k and needs_compact (1 when
+    a row drained to <= 1 token and the caller must recompact the stream).
+    """
+    target = min(num_merges + max_rounds, merges.shape[0])
+    k, L, flag = num_merges, length, 0
+    while k < target and L >= 2 and flag == 0:
+        ta, tb, cnt = select_top_pair_sorted(tokens, vocab_size, layout_block=LAYOUT)
+        new_id = torch.full_like(ta, VOCAB_START + k)
+        table = torch.stack([ta, tb, new_id]).to(torch.int32).view(1, 3)
+        tokens, stats = kmerge.merge_pass_multi(tokens, table)
+        _, L, min_kept = stats.tolist()
+        merges[k] = table[0]
+        occupancy[k] = cnt
+        flag = int(min_kept <= 1)
+        k += 1
+    return tokens, L, merges, occupancy, k, flag
 
 
 def encode_replay(tokens: torch.Tensor, merges: torch.Tensor):

@@ -13,6 +13,7 @@ device is a CUDA device, so the recorded time includes the work it queued.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional
@@ -81,3 +82,17 @@ class TimeStats:
 
     def print_report(self) -> None:
         print(self.report())
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | os.PathLike) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of a block (CPU activity and, when
+    a card is present, CUDA activity) and write it into ``log_dir`` as a
+    Chrome/TensorBoard ``*.pt.trace.json`` file."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield
