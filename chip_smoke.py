@@ -88,6 +88,30 @@ Phases, each of which must pass:
              32 MiB: the port's (torch.unique counts the runs), the JAX
              function's cummax over run starts, and a binary search for
              each run's start; all three must agree;
+   dp      — the data-parallel trainer (parallel/train_dp.py) in this
+             process on an NCCL group of world size 1 on cuda:0: the 32 MiB
+             tiled corpus to vocab 512 through train_dp (twice; equal to
+             phase 6's merges, the native trainer's; MB/s, ms a merge,
+             merge passes, collectives a round and the TimeStats phases);
+             the conformance corpus to DP_SHARDED_VOCAB on the row-sharded
+             table (equal to the native trainer's first merges);
+             multihost.train_from_files on the 32 MiB in a file with a
+             checkpoint every chunk, then resumed from the checkpoint rewound
+             to DP_RESUME_AT merges (both equal to phase 6's); and one
+             a == b and one a != b shard merge at the 32 MiB's shard size,
+             with the running maximum two ways;
+   dp-ranks — DP_RANKS child processes of this script on the one card, all
+             on cuda:0, in a gloo group (NCCL takes no two ranks on one
+             device), so shard boundaries and empty ranks run on the card:
+             the conformance corpus to vocab 512 (a prefix of the native
+             32768 merges; each rank checksums its replicated table and
+             merges and all-gathers the checksums, which must agree),
+             a == b runs across ranks to vocab 272 and b"aaab" to vocab 300
+             (the port's oracle), the corpus to DP_RANKS_SHARDED_VOCAB on
+             the row-sharded table (LAZY_VOCAB_MAX lowered to
+             DP_RANKS_LAZY_VOCAB_MAX; a native prefix) and train_from_files
+             to vocab 300 (tests/data/merges.txt; each rank reports the
+             bytes it read); every rank must launch the merge kernel;
 8. serving — BASELINE.json config 3: a 1024-merge table trained by the
              native trainer on the first 1 MiB, scheduled with
              schedule_merges(cap=32). BasicTokenizer(device="cuda")
@@ -109,8 +133,9 @@ Phases, each of which must pass:
              singletons), each equal to the twin on 64 rows;
 9. count   — each kernel's launch counter, zeroed just before its path
              (the probe kernels: the six probes of phase 3; merge: phases
-             5-6, and again phase 7; encode: the two encode_batch calls of
-             phase 8), is > 0 just after it.
+             5-6, and again phase 7, and again dp; encode: the two
+             encode_batch calls of phase 8), is > 0 just after it; each
+             dp-ranks child counts its own from zero.
 
 Prints each phase's result and wall time, then a JSON line of kernels, the
 card's name and power limit, and as the last line
@@ -161,6 +186,23 @@ SORTED_VOCAB = 32768    # past LAZY_VOCAB_MAX: Mistral-7B-v0.3's vocab_size
 SORTED_SCALE_BYTES = 32 << 20  # the tiled corpus trained to SORTED_VOCAB
 SORTED_HEAD_BYTES = 16 << 10   # encoded on the card against the native encoder
 SORTED_RESUME_AT = 16000       # merges kept when the checkpoint is rewound
+# the dp phase's row-sharded run, held against the first merges of
+# native_32768: vocab 32768 took 206.6-399.4 s there (6.4-12.3 ms a round,
+# host-bound: about 290 launches and five host syncs a round)
+DP_SHARDED_VOCAB = 16384
+DP_RESUME_AT = 128             # merges kept when the dp checkpoint is rewound
+DP_FILES_CHUNK = 128           # rounds a chunk there: a checkpoint of the 32 MiB a chunk
+DP_RANKS = 4                   # gloo ranks of the dp-ranks phase, all on cuda:0
+# their row-sharded run: the conformance corpus to 1024 with LAZY_VOCAB_MAX
+# lowered to 257 (as the CPU tests lower it), so the four ranks own rows
+# 0-255, 256-511, 512-767 and 768-1023 and every new row lands on another
+# rank. Vocab 9000 took 520.0 s there: 8744 rounds of about 7.8 collectives
+# at 7.7 ms each through gloo with four processes on one card.
+DP_RANKS_SHARDED_VOCAB = 1024
+DP_RANKS_LAZY_VOCAB_MAX = 257
+DP_PARITY = (b"a" * 9000 + b"bc" * 600 + b"a" * 7000, 272)  # a == b runs across ranks
+DP_TINY = (b"aaab", 300)       # fewer bytes than ranks: some start empty
+DP_GROUP_TIMEOUT_S = 300       # a collective that waits longer raises
 KERNELS = ("merge", "encode", "copy", "opmix", "hist", "lowering")
 
 
@@ -1246,6 +1288,254 @@ def phase_sorted(torch, card, lazy_merges, native_32768):
             + f"; {card}")
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_dp(torch, card, lazy_merges, native_32768):
+    """The data-parallel trainer in one process: an NCCL group of world size
+    1 on cuda:0 (every collective a real NCCL call). (a) The 32 MiB tiled
+    corpus to SCALE_VOCAB through train_dp, equal to phase 6's merges (the
+    native trainer's), timed twice; (b) the conformance corpus to
+    DP_SHARDED_VOCAB on the row-sharded table, equal to the native
+    trainer's first merges; (c) multihost.train_from_files on the 32 MiB in
+    a file with a checkpoint every chunk, then resumed from its checkpoint
+    rewound to DP_RESUME_AT merges, both equal to (a); then one a == b
+    shard merge (and an a != b one) at (a)'s shard size. Returns the merge
+    kernel launches of (a)-(c), counted from zero (the caller zeroes the
+    count just before the phase)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from zigbpe_tpu_torch.ops.kernels import merge as km
+    from zigbpe_tpu_torch.parallel import multihost, train_dp as dp
+    from zigbpe_tpu_torch.utils import checkpoint
+    from zigbpe_tpu_torch.utils.profiling import TimeStats
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+    try:
+        # (a) full width: 32 MiB to vocab 512
+        data = tiled_corpus(SCALE_BYTES)
+        mb = len(data) / 1e6
+        runs = []
+        for _ in range(2):  # the first run includes one-time set-up
+            g, stats = dp.DataGroup(), TimeStats()
+            passes0 = km.merge_pass_multi.launches
+            t0 = time.perf_counter()
+            merges = dp.train_dp(data, SCALE_VOCAB, g, device=dev, stats=stats)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, km.merge_pass_multi.launches - passes0,
+                         g.collectives))
+            require(merges == lazy_merges, "train_dp merges differ from phase 6's (native) "
+                    f"from merge {first_difference(merges, lazy_merges)}")
+        wall, passes, colls = runs[-1]
+        n = len(merges)
+        log(f"[dp] ok: NCCL world 1, {mb:.3f} MB to vocab {SCALE_VOCAB}: {n} merges == native "
+            f"C++ trainer in {wall:.3f} s = {mb / wall:.2f} MB/s (first run {runs[0][0]:.3f} s), "
+            f"{wall / n * 1e3:.3f} ms/merge, {passes} merge passes, {colls / n:.2f} "
+            f"collectives a round; {card}")
+        for line in stats.report().splitlines():
+            log(f"[dp]   {line.strip()}")
+
+        # (b) the row-sharded table
+        V = DP_SHARDED_VOCAB
+        require(V > dp.LAZY_VOCAB_MAX, "the sharded run must pass LAZY_VOCAB_MAX")
+        want = native_32768.result()[: V - 256]
+        corpus = CORPUS.read_bytes()
+        g = dp.DataGroup()
+        t1 = time.perf_counter()
+        merges = dp.train_dp(corpus, V, g, device=dev)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t1
+        require(merges == want, "sharded train_dp differs from the native merges from merge "
+                f"{first_difference(merges, want)}")
+        log(f"[dp] ok: row-sharded table, {len(corpus)} bytes to vocab {V}: {len(merges)} "
+            f"merges == native C++ trainer in {sharded_s:.3f} s ({sharded_s / len(merges) * 1e3:.3f} "
+            f"ms/merge, {g.collectives / len(merges):.2f} collectives a round); {card}")
+
+        # (c) from files, checkpointed every chunk, then resumed midway
+        lib = native_library()
+        with tempfile.TemporaryDirectory() as tmp:
+            path, ck = pathlib.Path(tmp) / "corpus.bin", pathlib.Path(tmp) / "ck"
+            path.write_bytes(data)
+            t2 = time.perf_counter()
+            got = multihost.train_from_files([path], SCALE_VOCAB, device=dev,
+                                             chunk_rounds=DP_FILES_CHUNK, checkpoint_dir=ck,
+                                             checkpoint_every_chunks=1)
+            files_s = time.perf_counter() - t2
+            require(got == lazy_merges, "train_from_files differs from phase 6's merges")
+            saved, _, vocab, occ = checkpoint.load(ck)
+            require(vocab == SCALE_VOCAB and saved == lazy_merges, "the last checkpoint")
+            checkpoint.save(ck, saved[:DP_RESUME_AT],
+                            native_encode(lib, data, lazy_merges[:DP_RESUME_AT]), vocab,
+                            occ[:DP_RESUME_AT])
+            t3 = time.perf_counter()
+            resumed = multihost.train_from_files([path], SCALE_VOCAB, device=dev,
+                                                 checkpoint_dir=ck)
+            resume_s = time.perf_counter() - t3
+            require(resumed == lazy_merges, "the resumed run differs from phase 6's merges")
+        log(f"[dp] ok: train_from_files with a checkpoint every chunk ({files_s:.3f} s) and "
+            f"resumed at merge {DP_RESUME_AT} ({resume_s:.3f} s) == native C++ trainer; {card}")
+        launches = km.merge_pass_multi.launches  # zeroed just before the phase
+
+        # one a == b shard merge at (a)'s shard size, and an a != b one
+        g = dp.DataGroup()
+        tokens = dp.shard_corpus(data, g, dev)
+        edges = dp._gather_edges(tokens, g)
+        rep = commonest_repeat()
+        aa = statistics.fmean(time_runs(
+            lambda: dp._parity_merge_shard(tokens, rep, 256, edges, g), dev, 3))
+        work = [tokens]
+        ab = statistics.fmean(time_runs(
+            lambda: dp._kernel_merge_shard(work[0], *lazy_merges[0][:2], 256, edges, 0), dev, 3,
+            setup=lambda: work.__setitem__(0, tokens.clone())))
+        x = torch.where(tokens == rep, -1, torch.arange(tokens.shape[0], device=dev))
+        require(torch.equal(dp._prefix_max(x), torch.cummax(x, 0).values),
+                "the two-level running maximum differs from torch.cummax")
+        two = statistics.fmean(time_runs(lambda: dp._prefix_max(x), dev, 3))
+        one = statistics.fmean(time_runs(lambda: torch.cummax(x, 0), dev, 3))
+        log(f"[dp] one shard merge over {tokens.shape[0]} tokens (capacity; {len(data)} valid), "
+            f"ms (CUDA events, mean of 3): a == b ({rep},{rep}) {aa:.4f}, a != b "
+            f"{tuple(lazy_merges[0][:2])} {ab:.4f}; its running maximum: two-level {two:.4f}, "
+            f"torch.cummax of the 1-D tensor {one:.4f}; {card}")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_rank_main(rank: int, world: int, port: int, tmp: pathlib.Path) -> int:
+    """One rank of the dp-ranks phase: a gloo group of ``world`` processes,
+    all on cuda:0, running every case and writing its results to
+    ``tmp/rank<rank>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from zigbpe_tpu_torch.ops.kernels import merge as km
+    from zigbpe_tpu_torch.parallel import multihost, train_dp as dp
+
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+    g = dp.DataGroup()
+    corpus = CORPUS.read_bytes()
+    out, secs, colls = {}, {}, {}
+
+    def case(name, fn):
+        c0, t0 = g.collectives, time.perf_counter()
+        out[name] = fn()
+        secs[name], colls[name] = time.perf_counter() - t0, g.collectives - c0
+        print(f"rank {rank}: {name} {secs[name]:.3f} s", file=sys.stderr, flush=True)
+
+    def replicated_512():
+        # kept table: the replicated state every rank must hold alike
+        tokens = dp.shard_corpus(corpus, g, dev)
+        ub = dp.init_ub_dp(tokens, SCALE_VOCAB, g)
+        merges = dp.train_dp_tokens(tokens, len(corpus), SCALE_VOCAB, g, ub=ub)
+        digest = hashlib.sha256(ub.cpu().numpy().tobytes() + json.dumps(merges).encode())
+        out["checksums"] = g.all_gather(torch.tensor(
+            [int.from_bytes(digest.digest()[:7], "little")], device=dev)).flatten().tolist()
+        return merges
+
+    def files():
+        path = [tmp / "corpus.txt"]
+        tokens, total = dp.shard_corpus_from_files(path, g, dev)
+        out["files_read"] = [int((tokens >= 0).sum()), total]
+        return multihost.train_from_files(path, 300, g, device=dev)
+
+    case("corpus_512", replicated_512)
+    case("parity", lambda: dp.train_dp(DP_PARITY[0], DP_PARITY[1], g, device=dev))
+    case("tiny", lambda: dp.train_dp(DP_TINY[0], DP_TINY[1], g, device=dev))
+    lazy_max, dp.LAZY_VOCAB_MAX = dp.LAZY_VOCAB_MAX, DP_RANKS_LAZY_VOCAB_MAX
+    case("sharded", lambda: dp.train_dp(corpus, DP_RANKS_SHARDED_VOCAB, g, device=dev))
+    dp.LAZY_VOCAB_MAX = lazy_max
+    case("files", files)
+    out.update(seconds=secs, collectives=colls, launches=km.merge_pass_multi.launches)
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dp_ranks(torch, card, native_32768):
+    """DP_RANKS processes on the one card, all on cuda:0, in a gloo group
+    (NCCL takes no two ranks on one device): the conformance corpus to
+    SCALE_VOCAB (a prefix of native_32768), DP_PARITY and DP_TINY against
+    the port's oracle, the corpus to DP_RANKS_SHARDED_VOCAB on the
+    row-sharded table (LAZY_VOCAB_MAX lowered; a prefix of native_32768),
+    and train_from_files
+    (golden merges.txt; each rank reports the bytes it read); every rank's
+    checksum of its replicated table and merges must agree, and every rank
+    must have launched the merge kernel. Returns the ranks' launches."""
+    from zigbpe_tpu_torch import serde
+    from zigbpe_tpu_torch.models import oracle
+    from zigbpe_tpu_torch.parallel import train_dp as dp
+
+    native = native_32768.result()
+    corpus = CORPUS.read_bytes()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "corpus.txt").write_bytes(corpus)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--dp-rank", str(r), str(DP_RANKS), str(port), str(tmp)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ) for r in range(DP_RANKS)]
+        try:
+            outs = [p.communicate(timeout=2 * DP_GROUP_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        wall = time.perf_counter() - t0
+        for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0, f"rank {r} exited {p.returncode}: {err[-3000:]}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(DP_RANKS)]
+    want = {
+        "corpus_512": native[: SCALE_VOCAB - 256],
+        "parity": oracle.train(*DP_PARITY),
+        "tiny": oracle.train(*DP_TINY),
+        "sharded": native[: DP_RANKS_SHARDED_VOCAB - 256],
+        "files": serde.load(GOLDEN),
+    }
+    for name, merges in want.items():
+        for r, got in enumerate(res):
+            got = [tuple(m) for m in got[name]]
+            require(got == merges, f"rank {r}: {name} differs from merge "
+                    f"{first_difference(got, merges)}")
+    for r, got in enumerate(res):
+        start, end, _ = dp.shard_range(len(corpus), r, DP_RANKS)
+        require(got["files_read"] == [end - start, len(corpus)],
+                f"rank {r} read {got['files_read']}, not its range [{start}, {end})")
+        require(got["checksums"] == res[0]["checksums"], f"rank {r}'s checksums differ")
+        require(got["launches"] > 0, f"rank {r} never launched the merge kernel")
+    require(len(set(res[0]["checksums"])) == 1, "the ranks' replicated tables differ")
+    r0 = res[0]
+    log(f"[dp-ranks] ok: {DP_RANKS} gloo ranks on cuda:0 in {wall:.1f} s; every case == its "
+        "reference on every rank (corpus to 512 and to "
+        f"{DP_RANKS_SHARDED_VOCAB} sharded == native prefixes, a == b runs and empty ranks == "
+        "oracle, files == merges.txt); checksums agree; merge launches by rank "
+        f"{[x['launches'] for x in res]}; {card}")
+    for name, s in r0["seconds"].items():
+        n = len(r0[name])
+        log(f"[dp-ranks]   {name}: {n} merges in {s:.3f} s ({s / max(n, 1) * 1e3:.3f} ms/merge), "
+            f"{r0['collectives'][name] / max(n, 1):.2f} collectives a round (rank 0)")
+    return sum(x["launches"] for x in res)
+
+
 # ------------------------------------------------------ encode kernel cases
 
 JAX_FUZZ_SEEDS = (0, 1, 2, 3, 5, 6, 7, 8)  # both groupers, caps 4, 8 and 16
@@ -1681,6 +1971,9 @@ def run_phase(name, fn, *args):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-rank"]:
+        rank, world, port, tmp = sys.argv[2:6]
+        return dp_rank_main(int(rank), int(world), int(port), pathlib.Path(tmp))
     import torch
 
     if not torch.cuda.is_available():
@@ -1717,15 +2010,20 @@ def main() -> int:
     km.merge_pass_multi.launches = 0
     run_phase("sorted", phase_sorted, torch, card, lazy_merges, native_32768)
     sorted_launches = km.merge_pass_multi.launches
+    km.merge_pass_multi.launches = 0
+    dp_launches = run_phase("dp", phase_dp, torch, card, lazy_merges, native_32768)
+    dp_ranks_launches = run_phase("dp-ranks", phase_dp_ranks, torch, card, native_32768)
     native_pool.shutdown()
     serving = run_phase("serving", phase_serving, torch, card, build_s["encode"])
     require(launches > 0, "the merge kernel never launched on the train/encode path")
     require(sorted_launches > 0, "the merge kernel never launched on the sorted training path")
+    require(dp_launches > 0, "the merge kernel never launched on the data-parallel path")
     require(serving["launches"] > 0, "the encode kernel never launched on the serving path")
     for name, row in probes.items():
         require(row["launches"] > 0, f"{name} never launched on the probes' path")
     log(f"[count] ok: merge kernel launched {launches} times on the train/encode path and "
-        f"{sorted_launches} on the sorted training path, "
+        f"{sorted_launches} on the sorted training path, {dp_launches} on the dp path and "
+        f"{dp_ranks_launches} on the dp-ranks path (over {DP_RANKS} ranks), "
         f"encode kernel {serving['launches']} times on the encode_batch path; on the "
         f"probes' path " + ", ".join(f"{n} {r['launches']}" for n, r in probes.items()))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -1738,7 +2036,8 @@ def main() -> int:
         "name": "merge_pass_multi", "route": "cuda",
         "source": "zigbpe_tpu_torch/csrc/merge.cu",
         "replaces": "zigbpe_tpu/ops/pallas/merge.py:222",
-        "launches": launches + sorted_launches, "max_abs_err": max_err, "ms": ms,
+        "launches": launches + sorted_launches + dp_launches + dp_ranks_launches,
+        "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain,
         "bound_ms": pass_bound, "bound_by": pass_by, "library_ms": None,
     }, {

@@ -35,7 +35,8 @@ MODULES = [
     "zigbpe_tpu_torch.ops.kernels.hist", "zigbpe_tpu_torch.ops.kernels.lowering",
     "zigbpe_tpu_torch.probes.alu16", "zigbpe_tpu_torch.probes.hist",
     "zigbpe_tpu_torch.probes.lowering", "zigbpe_tpu_torch.utils.checkpoint",
-    "zigbpe_tpu_torch.gui", "zigbpe_tpu_torch.gui.app",
+    "zigbpe_tpu_torch.gui", "zigbpe_tpu_torch.gui.app", "zigbpe_tpu_torch.parallel",
+    "zigbpe_tpu_torch.parallel.train_dp", "zigbpe_tpu_torch.parallel.multihost",
 ]
 
 
@@ -57,6 +58,27 @@ def test_imports_without_jax_or_reference_package():
     )
     r = _run(code)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_cli_train_dp_runs_without_jax_or_reference_package(tmp_path):
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(b"hello world hello " * 20)
+    out = tmp_path / "merges.txt"
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['zigbpe_tpu'] = None\n"
+        "from zigbpe_tpu_torch import cli\n"
+        f"rc = cli.main(['train', {str(corpus)!r}, '--vocab', '270', '--out', {str(out)!r},\n"
+        "               '--backend', 'dp', '--device', 'cpu'])\n"
+        "assert rc == 0\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'zigbpe_tpu.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    r = _run(code)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    assert len(out.read_text().split()) == 14
 
 
 def test_kernel_module_imports_without_nvcc(tmp_path):
@@ -88,6 +110,25 @@ def test_cuda_request_raises_without_a_card():
         core.pad_tokens(b"hello", 256, device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         train.train(b"hello hello", 300, device="cuda")
+
+
+def test_data_parallel_entry_points_default_to_the_card(tmp_path):
+    """train_dp, train_from_files and a multi-process initialize run on
+    the card unless asked otherwise: without a card they raise, before any
+    process group is made."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from zigbpe_tpu_torch.parallel import multihost, train_dp
+
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(b"hello hello")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        train_dp.train_dp(b"hello hello", 300)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        multihost.train_from_files([str(corpus)], 300)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        multihost.initialize("127.0.0.1:1", 2, 0)
+    assert not torch.distributed.is_initialized()
 
 
 def test_train_defaults_to_the_card():

@@ -192,8 +192,14 @@ def packed_count_fn(tokens: torch.Tensor, vocab_size: int,
                     layout_block: int | None = None):
     """The exact-count pass for ``select_top_pair_lazy``: compares against
     one packed pair-id stream while V*V fits int32, else the two components."""
+    return stream_count_fn(*pair_streams(tokens, layout_block), vocab_size)
+
+
+def stream_count_fn(sa: torch.Tensor, sb: torch.Tensor, vocab_size: int):
+    """:func:`packed_count_fn` on given pair streams (``sb`` PAD where a
+    slot holds no pair): ``count_fn(pa, pb)`` gives the int32 count of each
+    queried pair."""
     V = vocab_size
-    sa, sb = pair_streams(tokens, layout_block)
     if V * V < 2**31:
         pid_stream = torch.where(sb >= 0, sa * V + sb, -1)
 
