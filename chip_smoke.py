@@ -6,11 +6,12 @@
 Phases, each of which must pass:
 
 1. build   — compile the CUDA kernels of ``zigbpe_tpu_torch/csrc/`` (one
-             nvcc per source, all at once, sm_90a) into
-             ``zigbpe_tpu_torch/_build/`` and print the ptxas lines of the
-             production kernels (the merge kernel's mask-0 instantiation)
-             and the largest register count and any spill of the ablated
-             merge instantiations;
+             nvcc per source, all at once, sm_90a) and, beside them, the
+             native host runtime (``zigbpe_tpu_torch/native/fastio.cpp``,
+             g++) into ``zigbpe_tpu_torch/_build/``, and print the ptxas
+             lines of the production kernels (the merge kernel's mask-0
+             instantiation) and the largest register count and any spill of
+             the ablated merge instantiations;
 2. kernel  — the merge kernel (one launch a pass on a persistent grid)
              against its plain PyTorch twin (run on a CPU copy) at 1 tile,
              many tiles, a tile count that is no multiple of the grid (with a
@@ -52,8 +53,9 @@ Phases, each of which must pass:
              copy_peek with copy_blocks, onehot_hist with bincount and on all
              zeros with the probe's tokens, and rows_to_column and transpose
              at the script's shape (also device time from a CUDA graph and
-             host enqueue time) and at 2^25 int32, beside their bytes bound.
-             Then
+             host enqueue time) and at 2^25 int32, beside their bytes bound;
+             iota_mod_add, dot_tn and onehot_dot also by device time from a
+             CUDA graph. Then
              ``python -m zigbpe_tpu_torch.probes`` floor, pipeline (both
              tables), budget, alu16, hist and lowering run at full size and
              print their tables;
@@ -68,10 +70,14 @@ Phases, each of which must pass:
              it back; ``python -m zigbpe_tpu_torch.cli demo`` round-trips the
              probe;
 6. scale   — the corpus tiled to 32 MiB, trained to vocab 512 on the card
-             and cross-checked against the native C++ trainer
-             (zigbpe_tpu/native/fastio.cpp, built with g++ and called by
-             path); the 32 MiB corpus encoded on the card equals the native
-             encoder's ids;
+             with the table seeded on the host (the native library must be
+             built, and count_pairs must run twice: the host count, then its
+             placement) and cross-checked against the native C++ trainer
+             (the port's native runtime, zigbpe_tpu_torch.native.fastio);
+             the 32 MiB corpus encoded on the card equals the native
+             encoder's ids; the host seed and the device seed, and the
+             native and Python reads of the 32 MiB file, timed in turns
+             (``python -m zigbpe_tpu_torch.probes seed``);
 7. sorted  — training past LAZY_VOCAB_MAX (sort-based selection, one
              K = 1 merge pass a round): BasicTokenizer(device="cuda") trains
              the conformance corpus to vocab 32768, exactly the native C++
@@ -91,8 +97,11 @@ Phases, each of which must pass:
    dp      — the data-parallel trainer (parallel/train_dp.py) in this
              process on an NCCL group of world size 1 on cuda:0: the 32 MiB
              tiled corpus to vocab 512 through train_dp (twice; equal to
-             phase 6's merges, the native trainer's; MB/s, ms a merge,
-             merge passes, collectives a round and the TimeStats phases);
+             phase 6's merges, the native trainer's, with the table seeded
+             on the host; MB/s, ms a merge, merge passes, collectives a
+             round and the TimeStats phases); the host-seeded tables equal
+             the device-seeded ones (replicated, fresh and resumed, and
+             row-sharded), and the replicated ones are timed in turns;
              the conformance corpus to DP_SHARDED_VOCAB on the row-sharded
              table (equal to the native trainer's first merges);
              multihost.train_from_files on the 32 MiB in a file with a
@@ -150,7 +159,6 @@ and the pass split of phase 8 on the first 1024 serving rows, and stops.
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import json
 import os
@@ -165,6 +173,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from zigbpe_tpu_torch.native import fastio
 from zigbpe_tpu_torch.probes import (INT32_LANES_PER_SM, SMS, bound_ms, int32_bound_ms,
                                       max_sm_clock_hz, smem_bound_ms, time_runs)
 from zigbpe_tpu_torch.probes.budget import tiled_corpus
@@ -172,7 +181,6 @@ from zigbpe_tpu_torch.probes.budget import tiled_corpus
 ROOT = pathlib.Path(__file__).resolve().parent
 CORPUS = ROOT / "tests" / "data" / "taylorswift.txt"
 GOLDEN = ROOT / "tests" / "data" / "merges.txt"
-NATIVE_SRC = ROOT / "zigbpe_tpu" / "native" / "fastio.cpp"
 PROBE = "hello world!!!? (안녕하세요!) lol123 😉"
 SCALE_BYTES = 32 << 20  # bench.py's headline corpus: 32 MiB
 SCALE_VOCAB = 512       # 256 merges
@@ -262,40 +270,14 @@ def first_difference(got, want) -> int:
 
 # ------------------------------------------------------------------ native
 
-def native_library() -> ctypes.CDLL:
-    """The repo's C++ host trainer/encoder, built from source by path."""
-    from zigbpe_tpu_torch.ops.kernels import _build
-
-    digest = hashlib.sha256(NATIVE_SRC.read_bytes()).hexdigest()[:16]
-    lib_path = _build.BUILD_DIR / f"libzigbpe_native_{digest}.so"
-    if not lib_path.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        subprocess.run(["g++", "-O3", "-shared", "-fPIC", str(NATIVE_SRC), "-o", str(tmp)],
-                       check=True, capture_output=True)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.zbpe_train.restype = ctypes.c_int64
-    lib.zbpe_train.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
-                               ctypes.c_void_p]
-    lib.zbpe_encode.restype = ctypes.c_int64
-    lib.zbpe_encode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
-                                ctypes.c_int64, ctypes.c_void_p]
-    return lib
+def native_train(data: bytes, vocab: int):
+    """The native C++ trainer's merges (the port's host runtime,
+    zigbpe_tpu_torch/native/fastio.cpp, built with g++ in phase 1)."""
+    return fastio.train(data, vocab)
 
 
-def native_train(lib, data: bytes, vocab: int):
-    out = np.zeros(3 * (vocab - 256), np.int32)
-    k = lib.zbpe_train(data, len(data), vocab, out.ctypes.data)
-    require(k >= 0, "native trainer rejected its arguments")
-    return [tuple(int(v) for v in row) for row in out[: 3 * k].reshape(-1, 3)]
-
-
-def native_encode(lib, data: bytes, merges) -> np.ndarray:
-    flat = np.asarray(merges, np.int32).reshape(-1)
-    out = np.zeros(len(data), np.int32)
-    n = lib.zbpe_encode(data, len(data), flat.ctypes.data, len(merges), out.ctypes.data)
-    return out[:n]
+def native_encode(data: bytes, merges) -> np.ndarray:
+    return np.asarray(fastio.encode(data, merges), np.int32)
 
 
 # ------------------------------------------------------------------ phases
@@ -333,12 +315,22 @@ def phase_build():
         path = _build.build(name)
         return path, time.perf_counter() - t
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    def timed_native():
+        t = time.perf_counter()
+        return fastio.build(), time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        native = pool.submit(timed_native)
         built = list(pool.map(timed, KERNELS))
     for name, (path, secs) in zip(KERNELS, built):
         log_ptxas(name, path)
         log(f"[build] ok: {path.relative_to(ROOT)} in {secs:.2f} s")
-    log(f"[build] all {len(KERNELS)} kernels built in {time.perf_counter() - t0:.2f} s")
+    ok, secs = native.result()
+    require(ok and fastio.available(), "the native library did not build (g++)")
+    log(f"[build] ok: native host runtime {fastio.library_path().relative_to(ROOT)} "
+        f"(g++ {' '.join(fastio.CXX_FLAGS)}) in {secs:.2f} s")
+    log(f"[build] all {len(KERNELS)} kernels and the native library built in "
+        f"{time.perf_counter() - t0:.2f} s")
     return {name: secs for name, (_, secs) in zip(KERNELS, built)}
 
 
@@ -909,6 +901,13 @@ def check_lowering(torch, card: str) -> dict:
         log(f"[probes] {name} at the script's shapes: kernel {ms:.4f} ms, plain PyTorch twin "
             f"{plain:.4f} ms, one PyTorch call {'none' if lib is None else f'{lib:.4f} ms'}, "
             f"bound {bound:.6f} ms ({by}); {card}")
+        if name not in COPY_CALLS:  # time_copy logs the redesigned rows' device times
+            # bincount reads its input's maximum on the host: no graph takes it
+            c_dev = graph_ms(torch, library) if name == "dot_tn" else None
+            k_dev = graph_ms(torch, kernel)
+            log(f"[probes] {name} device per call (CUDA graph of 20): kernel {k_dev:.5f} ms, "
+                f"one PyTorch call {'not timed' if c_dev is None else f'{c_dev:.5f} ms'}, "
+                f"bound {bound:.6f} ms, kernel / bound {k_dev / bound:.1f}; {card}")
         out[name] = {"max_abs_err": worst[name], "ms": ms, "plain_ms": plain,
                      "bound_ms": bound, "bound_by": by, "library_ms": lib}
     return out
@@ -1114,9 +1113,11 @@ def phase_golden(torch):
 def phase_scale(torch, card):
     from zigbpe_tpu_torch import BasicTokenizer
     from zigbpe_tpu_torch.ops.kernels import merge as km
+    from zigbpe_tpu_torch.probes import seed as seed_probe
 
     data = tiled_corpus(SCALE_BYTES)
     mb = len(data) / 1e6
+    require(fastio.available(), "the native library is not loaded: no host seed")
     runs = []
     for _ in range(2):  # the first run includes one-time CUDA set-up
         passes0 = km.merge_pass_multi.launches
@@ -1124,8 +1125,14 @@ def phase_scale(torch, card):
         tok = BasicTokenizer(device="cuda").train(data, SCALE_VOCAB)
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0, km.merge_pass_multi.launches - passes0))
+        seeds = tok.time_stats.phases["count_pairs"]
+        require(seeds.calls == 2, f"count_pairs ran {seeds.calls} times, not 2 (the host "
+                "seed, then its placement)")
     train_s, passes = runs[-1]
     require(len(tok.merges) == SCALE_VOCAB - 256, f"{len(tok.merges)} merges")
+    log(f"[scale] host seed taken: count_pairs 2 calls, {seeds.total_s * 1e3:.3f} ms in all; "
+        + ", ".join(f"{name} {acc.calls} x {acc.total_s * 1e3:.3f} ms"
+                    for name, acc in tok.time_stats.phases.items()))
     t1 = time.perf_counter()
     ids = tok.encode(data, backend="device")
     enc_s = time.perf_counter() - t1
@@ -1135,19 +1142,23 @@ def phase_scale(torch, card):
     log(f"[scale] card encode: {mb:.3f} MB, {len(ids)} tokens in {enc_s:.3f} s "
         f"= {mb / enc_s:.2f} MB/s; {card}")
 
-    lib = native_library()
     t2 = time.perf_counter()
-    want = native_train(lib, data, SCALE_VOCAB)
+    want = native_train(data, SCALE_VOCAB)
     nat_train_s = time.perf_counter() - t2
     require(tok.merges == want, "card merges differ from the native C++ trainer's")
     t3 = time.perf_counter()
-    want_ids = native_encode(lib, data, want)
+    want_ids = native_encode(data, want)
     nat_enc_s = time.perf_counter() - t3
     require(np.array_equal(np.asarray(ids, np.int32), want_ids),
             "card encode differs from the native C++ encoder's")
     log(f"[scale] ok: 256 merges == native C++ trainer ({nat_train_s:.1f} s, "
         f"{mb / nat_train_s:.2f} MB/s one core), ids == native encoder "
         f"({nat_enc_s:.1f} s)")
+    rows = seed_probe.run("cuda", SCALE_BYTES, SCALE_VOCAB, runs=5)
+    log(f"[scale] ok: host seed == device seed at {mb:.3f} MB, vocab {SCALE_VOCAB}; ms "
+        "(median of 5 in turns, host clock, device synchronised): "
+        + ", ".join(f"{name} {med:.3f} ({lo:.3f}-{hi:.3f})"
+                    for name, (med, lo, hi) in rows.items()) + f"; {card}")
     return tok.merges
 
 
@@ -1191,7 +1202,6 @@ def phase_sorted(torch, card, lazy_merges, native_32768):
     V = SORTED_VOCAB
     require(V > train.LAZY_VOCAB_MAX, "the sorted phase must train past LAZY_VOCAB_MAX")
     corpus = CORPUS.read_bytes()
-    lib = native_library()
 
     # (a) conformance: the native trainer's merges, encode on the card
     t0 = time.perf_counter()
@@ -1208,7 +1218,7 @@ def phase_sorted(torch, card, lazy_merges, native_32768):
     require(tok.decode(ids) == corpus, "decode does not give back the corpus")
     head = corpus[:SORTED_HEAD_BYTES]
     head_ids = tok.encode(head, backend="device")
-    require(np.array_equal(np.asarray(head_ids, np.int32), native_encode(lib, head, want)),
+    require(np.array_equal(np.asarray(head_ids, np.int32), native_encode(head, want)),
             "card encode of the first 16 KiB differs from the native encoder's")
     log(f"[sorted] ok: {len(corpus)} bytes to vocab {V}: {len(want)} merges == "
         f"native C++ trainer in {plain_s:.3f} s on the card ({plain_s / len(want) * 1e3:.3f} "
@@ -1226,7 +1236,7 @@ def phase_sorted(torch, card, lazy_merges, native_32768):
         saved, _, vocab, occ = checkpoint.load(ck)
         require(vocab == V and len(saved) > SORTED_RESUME_AT, f"checkpoint holds {len(saved)}")
         checkpoint.save(ck, saved[:SORTED_RESUME_AT],
-                        native_encode(lib, corpus, want[:SORTED_RESUME_AT]), V,
+                        native_encode(corpus, want[:SORTED_RESUME_AT]), V,
                         occ[:SORTED_RESUME_AT])
         t3 = time.perf_counter()
         resumed = BasicTokenizer(device="cuda").train(corpus, V, checkpoint_dir=ck).merges
@@ -1296,6 +1306,52 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def check_dp_seeds(torch, dp, data: bytes, lazy_merges, g, dev, card) -> None:
+    """At world size 1 the host-seeded tables equal the device-seeded ones:
+    the replicated table of ``data`` at SCALE_VOCAB, of its stream resumed
+    at DP_RESUME_AT merges, and the row-sharded table of the conformance
+    corpus at DP_SHARDED_VOCAB. The two replicated seeds that train_dp
+    takes at world size 1 (fresh: the native byte histogram; resumed:
+    np.unique over the stream) are timed in turns against the device seed
+    of the staged stream (init_ub_dp) that larger groups take."""
+    from zigbpe_tpu_torch.probes import seed as seed_probe, spread
+
+    t0 = time.perf_counter()
+    V = SCALE_VOCAB
+    fresh_tokens = dp.shard_corpus(data, g, dev)
+    ids = native_encode(data, lazy_merges[:DP_RESUME_AT])
+    resumed_tokens = dp.shard_token_ids(ids, g, dev)
+    seeds = {
+        "fresh host": lambda: dp._replicated_ub_from_entries(*dp._byte_pair_entries(data),
+                                                             vocab_size=V, device=dev),
+        "fresh device": lambda: dp.init_ub_dp(fresh_tokens, V, g),
+        "resumed host": lambda: dp._replicated_ub_from_entries(*dp._host_pair_entries(ids),
+                                                               vocab_size=V, device=dev),
+        "resumed device": lambda: dp.init_ub_dp(resumed_tokens, V, g),
+    }
+    for stream in ("fresh", "resumed"):
+        require(torch.equal(seeds[f"{stream} host"](), seeds[f"{stream} device"]()),
+                f"the host-seeded replicated table of the {stream} stream differs from the "
+                "device seed")
+    times = seed_probe.in_turns(seeds, dev, runs=5)
+    del fresh_tokens, resumed_tokens
+    corpus = CORPUS.read_bytes()
+    Vs = DP_SHARDED_VOCAB
+    host = dp._sharded_ub_from_entries(*dp._byte_pair_entries(corpus), vocab_size=Vs, group=g,
+                                       device=dev)
+    device_seed = dp.init_ub_sharded_dp(dp.shard_corpus(corpus, g, dev), Vs, g, max_row=256)
+    require(torch.equal(host, device_seed),
+            "the host-seeded row-sharded table differs from the device seed")
+    log(f"[dp] ok: world size 1, host seeds == device seeds: replicated at vocab {V} "
+        f"(fresh, and resumed at merge {DP_RESUME_AT}), row-sharded {tuple(host.shape)} at "
+        f"vocab {Vs} ({time.perf_counter() - t0:.1f} s)")
+    log(f"[dp] replicated seeds at vocab {V}, fresh {len(data)} bytes and resumed {ids.size} "
+        "tokens; ms (median of 5 in turns, host clock, device synchronised): "
+        + ", ".join(f"{name} {med:.3f} ({lo:.3f}-{hi:.3f})"
+                    for name, (med, lo, hi) in ((n, spread(ms)) for n, ms in times.items()))
+        + f"; {card}")
+
+
 def phase_dp(torch, card, lazy_merges, native_32768):
     """The data-parallel trainer in one process: an NCCL group of world size
     1 on cuda:0 (every collective a real NCCL call). (a) The 32 MiB tiled
@@ -1326,17 +1382,24 @@ def phase_dp(torch, card, lazy_merges, native_32768):
         # (a) full width: 32 MiB to vocab 512
         data = tiled_corpus(SCALE_BYTES)
         mb = len(data) / 1e6
-        runs = []
-        for _ in range(2):  # the first run includes one-time set-up
-            g, stats = dp.DataGroup(), TimeStats()
-            passes0 = km.merge_pass_multi.launches
-            t0 = time.perf_counter()
-            merges = dp.train_dp(data, SCALE_VOCAB, g, device=dev, stats=stats)
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0, km.merge_pass_multi.launches - passes0,
-                         g.collectives))
-            require(merges == lazy_merges, "train_dp merges differ from phase 6's (native) "
-                    f"from merge {first_difference(merges, lazy_merges)}")
+        runs, host_seeds = [], []
+        byte_entries = dp._byte_pair_entries  # counts the host seeds train_dp takes
+        dp._byte_pair_entries = lambda d: host_seeds.append(len(d)) or byte_entries(d)
+        try:
+            for _ in range(2):  # the first run includes one-time set-up
+                g, stats = dp.DataGroup(), TimeStats()
+                passes0 = km.merge_pass_multi.launches
+                t0 = time.perf_counter()
+                merges = dp.train_dp(data, SCALE_VOCAB, g, device=dev, stats=stats)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0, km.merge_pass_multi.launches - passes0,
+                             g.collectives))
+                require(merges == lazy_merges, "train_dp merges differ from phase 6's (native) "
+                        f"from merge {first_difference(merges, lazy_merges)}")
+        finally:
+            dp._byte_pair_entries = byte_entries
+        require(host_seeds == [len(data)] * 2, f"train_dp took {len(host_seeds)} host seeds in "
+                "2 runs at world size 1")
         wall, passes, colls = runs[-1]
         n = len(merges)
         log(f"[dp] ok: NCCL world 1, {mb:.3f} MB to vocab {SCALE_VOCAB}: {n} merges == native "
@@ -1345,6 +1408,7 @@ def phase_dp(torch, card, lazy_merges, native_32768):
             f"collectives a round; {card}")
         for line in stats.report().splitlines():
             log(f"[dp]   {line.strip()}")
+        check_dp_seeds(torch, dp, data, lazy_merges, g, dev, card)
 
         # (b) the row-sharded table
         V = DP_SHARDED_VOCAB
@@ -1363,7 +1427,6 @@ def phase_dp(torch, card, lazy_merges, native_32768):
             f"ms/merge, {g.collectives / len(merges):.2f} collectives a round); {card}")
 
         # (c) from files, checkpointed every chunk, then resumed midway
-        lib = native_library()
         with tempfile.TemporaryDirectory() as tmp:
             path, ck = pathlib.Path(tmp) / "corpus.bin", pathlib.Path(tmp) / "ck"
             path.write_bytes(data)
@@ -1376,7 +1439,7 @@ def phase_dp(torch, card, lazy_merges, native_32768):
             saved, _, vocab, occ = checkpoint.load(ck)
             require(vocab == SCALE_VOCAB and saved == lazy_merges, "the last checkpoint")
             checkpoint.save(ck, saved[:DP_RESUME_AT],
-                            native_encode(lib, data, lazy_merges[:DP_RESUME_AT]), vocab,
+                            native_encode(data, lazy_merges[:DP_RESUME_AT]), vocab,
                             occ[:DP_RESUME_AT])
             t3 = time.perf_counter()
             resumed = multihost.train_from_files([path], SCALE_VOCAB, device=dev,
@@ -1666,10 +1729,9 @@ def phase_serving(torch, card, build_s):
     from zigbpe_tpu_torch.ops import core
     from zigbpe_tpu_torch.ops.kernels import encode as ke
 
-    lib = native_library()
     data = tiled_corpus(SERVE_BYTES)
     t0 = time.perf_counter()
-    table = native_train(lib, data[:SERVE_TABLE_BYTES], 256 + SERVE_MERGES)
+    table = native_train(data[:SERVE_TABLE_BYTES], 256 + SERVE_MERGES)
     require(len(table) == SERVE_MERGES, f"native trainer gave {len(table)} merges")
     gt_np, gl_np = ke.schedule_merges(np.asarray(table, np.int32), cap=32)
     P = gt_np.shape[0]
@@ -1713,7 +1775,7 @@ def phase_serving(torch, card, build_s):
     require(ids == BasicTokenizer(table, device="cpu").encode_batch(docs),
             "card encode_batch differs from the CPU path")
     for d, got in zip(docs, ids):
-        require(got == native_encode(lib, d, table).tolist(),
+        require(got == native_encode(d, table).tolist(),
                 "card encode_batch differs from the native C++ encoder")
     L_docs = max(len(d) for d in docs)
     log(f"[serving] ok: encode_batch of {len(docs)} documents (longest {L_docs} bytes, "
@@ -1735,7 +1797,7 @@ def phase_serving(torch, card, build_s):
         require(np.array_equal(np.asarray(got, np.int32), tw_out[k, : tw_len[k]]),
                 f"encode_batch row {serve_idx[k]} differs from the twin")
     for k in np.linspace(0, SERVE_DOCS - 1, 16).astype(np.int64).tolist():
-        require(row_ids[k] == native_encode(lib, row_docs[k], table).tolist(),
+        require(row_ids[k] == native_encode(row_docs[k], table).tolist(),
                 f"encode_batch row {serve_idx[k]} differs from the native C++ encoder")
     log(f"[serving] ok: encode_batch of {SERVE_DOCS} documents of {SERVE_ROW} bytes "
         f"(L = {SERVE_ROW}, 1 launch) == twin on the card, 16 of them == native "
@@ -1766,7 +1828,7 @@ def phase_serving(torch, card, build_s):
     require(worst == 0, f"encode kernel != twin on the 1 GiB batch (max_abs_err {worst})")
     twin_check_s = time.perf_counter() - t4
     for i in np.linspace(0, B - 1, 64).astype(np.int64).tolist():
-        want = native_encode(lib, data[i * SERVE_ROW:(i + 1) * SERVE_ROW], table)
+        want = native_encode(data[i * SERVE_ROW:(i + 1) * SERVE_ROW], table)
         require(np.array_equal(out[i, : lens_h[i]].cpu().numpy(), want),
                 f"row {i} differs from the native C++ encoder")
     log(f"[serving] ok: 1 GiB = {B} rows x {SERVE_ROW} tokens -> {n_out} tokens "
@@ -1919,7 +1981,7 @@ def split_main(torch, card: str) -> int:
     log_ptxas("encode", _build.build("encode"))
     phase_encode_kernel(torch)
     data = tiled_corpus(SPLIT_ROWS * SERVE_ROW)
-    table = native_train(native_library(), data[:SERVE_TABLE_BYTES], 256 + SERVE_MERGES)
+    table = native_train(data[:SERVE_TABLE_BYTES], 256 + SERVE_MERGES)
     gt_np, gl_np = ke.schedule_merges(np.asarray(table, np.int32), cap=32)
     rows = core.pad_tokens(data, len(data), "cuda")[0].view(SPLIT_ROWS, SERVE_ROW)
     encode_split(torch, rows, split_tables(data, gt_np, gl_np), card)
@@ -1991,7 +2053,7 @@ def main() -> int:
     # the native trainer takes most of a minute on one core for the sorted
     # phase's merges (it releases the interpreter lock): start it now
     native_pool = ThreadPoolExecutor(1)
-    native_32768 = native_pool.submit(native_train, native_library(), CORPUS.read_bytes(),
+    native_32768 = native_pool.submit(native_train, CORPUS.read_bytes(),
                                       SORTED_VOCAB)
     # a real K=4 group: the golden run's trained table
     golden = [tuple(int(v) for v in line.split(",")) for line in GOLDEN.read_text().split()]

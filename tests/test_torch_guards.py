@@ -37,6 +37,7 @@ MODULES = [
     "zigbpe_tpu_torch.probes.lowering", "zigbpe_tpu_torch.utils.checkpoint",
     "zigbpe_tpu_torch.gui", "zigbpe_tpu_torch.gui.app", "zigbpe_tpu_torch.parallel",
     "zigbpe_tpu_torch.parallel.train_dp", "zigbpe_tpu_torch.parallel.multihost",
+    "zigbpe_tpu_torch.native", "zigbpe_tpu_torch.native.fastio", "zigbpe_tpu_torch.probes.seed",
 ]
 
 

@@ -117,8 +117,26 @@ def _case_files(c, g, dp):
     return merges, int((tokens >= 0).sum()), total
 
 
+def _case_seeded(c, g, dp):
+    """train_dp with its host seeds counted: (merges, host seeds taken,
+    count_pairs calls)."""
+    from zigbpe_tpu_torch.utils.profiling import TimeStats
+
+    taken = []
+    saved = dp._byte_pair_entries, dp._host_pair_entries
+    dp._byte_pair_entries = lambda d: taken.append("bytes") or saved[0](d)
+    dp._host_pair_entries = lambda ids: taken.append("ids") or saved[1](ids)
+    stats = TimeStats()
+    try:
+        merges = dp.train_dp(c["data"], c["vocab"], g, device="cpu", stats=stats,
+                             **c.get("kwargs", {}))
+    finally:
+        dp._byte_pair_entries, dp._host_pair_entries = saved
+    return merges, taken, stats.phases["count_pairs"].calls
+
+
 CASES = {"train": _case_train, "init_ub": _case_init_ub, "merge": _case_merge,
-         "files": _case_files}
+         "files": _case_files, "seeded": _case_seeded}
 
 
 def _child(rank: int, world: int, port: int, tmp: Path) -> None:

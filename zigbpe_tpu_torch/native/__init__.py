@@ -1,0 +1,4 @@
+"""The native host runtime: ``fastio.cpp`` (whole-file reads, a
+single-core trainer and encoder with the reference's semantics, and the
+byte-pair histogram that seeds the trainer's upper-bound table), bound
+with ctypes by ``fastio``."""

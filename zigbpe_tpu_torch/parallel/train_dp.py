@@ -281,6 +281,63 @@ def init_ub_sharded_dp(tokens: torch.Tensor, vocab_size: int, group=None,
     return out
 
 
+def _host_pair_entries(ids: np.ndarray):
+    """Sparse exact pair counts of a host-resident token stream:
+    (rows, cols, counts) int64/int64/int32 (overlaps included, reference
+    semantics basic_tokenizer.zig:234-278)."""
+    ids = np.asarray(ids, dtype=np.int64)
+    if ids.size < 2:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.int32))
+    pid = ids[:-1] * 65536 + ids[1:]
+    uniq, counts = np.unique(pid, return_counts=True)
+    return uniq >> 16, uniq & 0xFFFF, counts.astype(np.int32)
+
+
+def _byte_pair_entries(data: bytes):
+    """Sparse byte-pair counts of a corpus (the native C++ histogram when
+    built, NumPy otherwise): only rows and columns below 256 occur."""
+    from ..native import fastio
+
+    block = fastio.byte_pair_hist(data)
+    if block is None:
+        return _host_pair_entries(np.frombuffer(bytes(data), dtype=np.uint8))
+    rows, cols = np.nonzero(block)
+    return rows.astype(np.int64), cols.astype(np.int64), block[rows, cols].astype(np.int32)
+
+
+def _place_entries(rows, cols, counts, *, row0: int, nrows: int, vocab_size: int,
+                   device) -> torch.Tensor:
+    """The (nrows, V) int32 block of table rows [row0, row0 + nrows) holding
+    the host-counted entries that fall in it: they cross to ``device`` and
+    are written into a block zeroed there (never a dense table on the host;
+    the JAX trainer fills one, 4 GiB at V = 32768)."""
+    V = vocab_size
+    rows = np.asarray(rows, np.int64)
+    mine = (rows >= row0) & (rows < row0 + nrows)
+    idx = torch.from_numpy((rows[mine] - row0) * V + np.asarray(cols, np.int64)[mine])
+    block = torch.zeros((nrows, V), dtype=torch.int32, device=device)
+    block.view(-1).index_put_(
+        (idx.to(device),), torch.from_numpy(np.asarray(counts, np.int32)[mine]).to(device))
+    return block
+
+
+def _replicated_ub_from_entries(rows, cols, counts, *, vocab_size: int, device) -> torch.Tensor:
+    """The flat V*V int32 replicated table holding host-counted entries."""
+    return _place_entries(rows, cols, counts, row0=0, nrows=vocab_size, vocab_size=vocab_size,
+                          device=device).view(-1)
+
+
+def _sharded_ub_from_entries(rows, cols, counts, *, vocab_size: int, group=None,
+                             device) -> torch.Tensor:
+    """This rank's (Vp / D, V) int32 row block of the row-sharded table
+    holding host-counted entries (Vp rounds V up to a multiple of D; padded
+    rows stay zero)."""
+    g = data_group(group)
+    Rl = -(-vocab_size // g.size)
+    return _place_entries(rows, cols, counts, row0=g.rank * Rl, nrows=Rl,
+                          vocab_size=vocab_size, device=device)
+
+
 # --------------------------------------------------------------------------
 # Selection
 # --------------------------------------------------------------------------
@@ -742,8 +799,14 @@ def train_dp(
     With ``checkpoint_dir`` set, a checkpoint is written every
     ``checkpoint_every_chunks`` chunks and, with ``resume``, training
     resumes from one found there; checkpoints are interchangeable with
-    the single-chip trainers of both packages. The table is always seeded
-    on the device (exact, so equal to a host seed)."""
+    the single-chip trainers of both packages.
+
+    The table's seed is counted on the host when one process sees the whole
+    stream, that is at world size 1 (the JAX trainer's one-process case):
+    a fresh corpus's byte pairs by the native runtime, a resumed stream's
+    pairs by ``np.unique``; the entries are placed on the device. Every
+    rank of a larger group sees only its slice and seeds on the device,
+    rows below 256 only for a fresh corpus. Both seeds are exact."""
     stats = stats or TimeStats.null()
     M = _validate_vocab(vocab_size)
     dev = _device(device)
@@ -760,8 +823,20 @@ def train_dp(
         else:
             tokens = shard_corpus(data, g, dev)
             total = len(data)
+    ub = None
+    if g.size == 1:
+        with stats.phase("count_pairs", dev):
+            if start_ids is not None:
+                entries = _host_pair_entries(start_ids)
+            else:
+                entries = _byte_pair_entries(data)
+            if vocab_size > LAZY_VOCAB_MAX:
+                ub = _sharded_ub_from_entries(*entries, vocab_size=vocab_size, group=g,
+                                              device=dev)
+            else:
+                ub = _replicated_ub_from_entries(*entries, vocab_size=vocab_size, device=dev)
     return train_dp_tokens(
-        tokens, total, vocab_size, g,
+        tokens, total, vocab_size, g, ub=ub,
         ub_max_row=None if start_ids is not None else 256,  # a fresh byte corpus
         start_merges=start_merges,
         start_occ=start_occ if start_occ is not None else (),

@@ -1,7 +1,7 @@
 """Measurement probes of the merge pass: how a pass spends its time on the
 card.
 
-    python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering|launch
+    python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering|launch|seed
         [--device cuda]
 
 Ports of the TPU measurement scripts, each on its own kernels:
@@ -23,6 +23,10 @@ Ports of the TPU measurement scripts, each on its own kernels:
   build checked (``ops.kernels.lowering``), held against its twin.
 - ``launch``: where a kernel wrapper's host time goes, piece by piece, and
   each wrapper's whole call (card only).
+- ``seed``: the trainer's two seeds of its upper-bound table (counted on
+  the host by the native runtime and placed, or counted on the device),
+  and the native and Python whole-file reads, in turns; host work, so on
+  the host clock with the device synchronised at the end of each run.
 
 On a CUDA device every row is timed with CUDA events: one warm-up run, then
 the median of ``runs`` runs with their range. On the CPU the probes run the

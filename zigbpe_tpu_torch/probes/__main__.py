@@ -1,11 +1,11 @@
-"""python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering|launch
+"""python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering|launch|seed
 [--device cuda]"""
 
 from __future__ import annotations
 
 import argparse
 
-from . import alu16, budget, floor, hist, launch, lowering, pipeline
+from . import alu16, budget, floor, hist, launch, lowering, pipeline, seed
 
 
 def main(argv=None) -> int:
@@ -31,6 +31,9 @@ def main(argv=None) -> int:
     sub.add_parser("lowering", help="the TPU build's lowering checks against their twins")
     la = sub.add_parser("launch", help="where a kernel wrapper's host time goes, piece by piece")
     la.add_argument("--calls", type=int, default=10_000, help="calls per timed span")
+    se = sub.add_parser("seed", help="the host and device seeds of the table, and file reads")
+    se.add_argument("--mb", type=int, default=32, help="corpus size in MiB")
+    se.add_argument("--vocab", type=int, default=512, help="the seeded table's vocab size")
     args = parser.parse_args(argv)
     if args.probe == "budget":
         budget.run(args.device, nbytes=args.mb << 20, np_passes=args.np_passes, runs=args.runs)
@@ -44,6 +47,8 @@ def main(argv=None) -> int:
         hist.run(args.device, n_tokens=args.tokens, passes=args.passes, runs=args.runs)
     elif args.probe == "lowering":
         lowering.run(args.device)
+    elif args.probe == "seed":
+        seed.run(args.device, nbytes=args.mb << 20, vocab=args.vocab, runs=args.runs)
     else:
         launch.run(args.device, calls=args.calls)
     return 0

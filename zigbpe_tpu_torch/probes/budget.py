@@ -44,7 +44,7 @@ def streams(data: bytes, np_passes: int, device: torch.device):
     if len(merges) != np_passes:
         raise ValueError(f"the corpus gave {len(merges)} merges, fewer than {np_passes}")
     table = torch.tensor(merges, dtype=torch.int32, device=device).view(np_passes, 1, 3)
-    tokens, _ = train.upload(data, device)
+    tokens, _, _ = train.upload(data, device)
     stacked = torch.empty((np_passes, tokens.shape[0]), dtype=torch.int32, device=device)
     stacked[0] = tokens
     for p in range(np_passes - 1):

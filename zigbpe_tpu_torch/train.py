@@ -9,7 +9,12 @@ touch proportionally less device memory.
 
 Up to ``LAZY_VOCAB_MAX`` a chunk runs lazy upper-bound selection
 (``core.train_chunk_lazy``); above it, sort-based selection
-(``core.train_chunk``). ``detailed_stats`` trades the chunk loop for a
+(``core.train_chunk``). The upper-bound table of a fresh byte corpus is
+seeded from the corpus's byte-pair histogram, counted on the host by the
+native runtime (``native/fastio``) while the bytes are still in host memory
+and placed in the table's low 256 x 256 block; a resumed stream, or a
+machine without the native library, seeds it on the device
+(``core.pair_histogram``). ``detailed_stats`` trades the chunk loop for a
 per-round loop on the same algorithms that times each phase.
 """
 
@@ -20,6 +25,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .native import fastio
 from .ops import core
 from .ops.kernels import LAYOUT
 from .ops.kernels import merge as kmerge
@@ -49,11 +55,39 @@ def _print_merge(i: int, M: int, a: int, b: int, new: int, count: int) -> None:
     print(f"merge {i}/{M}: ({a},{b}) -> {new} had {count} occurrences")
 
 
-def upload(data: bytes, device, stats: Optional[TimeStats] = None):
-    """Host->device staging only: returns (tokens, length) of the byte
-    corpus on ``device`` at the trainer's capacity."""
-    with (stats or TimeStats.null()).phase("initial_tokens", device):
+def _stage(data: bytes, device, stats: TimeStats):
+    with stats.phase("initial_tokens", device):
         return core.pad_tokens(data, _round_capacity(len(data)), device)
+
+
+def _host_seed(data: bytes, device, stats: TimeStats) -> Optional[torch.Tensor]:
+    """The (256, 256) byte-pair histogram of ``data``, counted on the host
+    by the native runtime, as int32 on ``device``; None without the native
+    library. Timed as ``count_pairs``."""
+    with stats.phase("count_pairs", device):
+        hist = fastio.byte_pair_hist(data)
+        return None if hist is None else torch.from_numpy(hist).to(device)
+
+
+def upload(data: bytes, device, stats: Optional[TimeStats] = None):
+    """Host->device staging only: returns (tokens, length, ub_seed_block)
+    of the byte corpus on ``device`` at the trainer's capacity, so callers
+    can account staging apart from :func:`train_device`. ``ub_seed_block``
+    is the host-counted (256, 256) byte-pair histogram on ``device`` (None
+    without the native library), which seeds lazy selection without a
+    pass over the stream on the device."""
+    stats = stats or TimeStats.null()
+    tokens, length = _stage(data, device, stats)
+    return tokens, length, _host_seed(data, device, stats)
+
+
+def _place_byte_hist(block: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """The flat V*V upper-bound table seeded from a (256, 256) byte-pair
+    histogram: a raw byte stream only populates the low block."""
+    V = vocab_size
+    ub = torch.zeros((V, V), dtype=torch.int32, device=block.device)
+    ub[:256, :256] = block
+    return ub.view(V * V)
 
 
 def train(
@@ -89,6 +123,7 @@ def train(
     if M == 0 or len(data) < 2:
         return []
 
+    stats = stats or TimeStats.null()
     state = {}
     if checkpoint_dir and resume:
         from .utils import checkpoint as ckpt
@@ -102,7 +137,7 @@ def train(
             if len(start_merges) > M:
                 raise ValueError("checkpoint has more merges than target vocab")
             k = len(start_merges)
-            with (stats or TimeStats.null()).phase("initial_tokens", dev):
+            with stats.phase("initial_tokens", dev):
                 tokens, length = core.pad_token_ids(
                     start_tokens, _round_capacity(start_tokens.size), dev)
                 merges = torch.full((M, 3), core.PAD, dtype=torch.int32, device=dev)
@@ -113,7 +148,11 @@ def train(
                 occupancy[: occ.numel()] = occ
             state = {"merges": merges, "occupancy": occupancy, "k": k}
     if not state:
-        tokens, length = upload(data, dev, stats)
+        tokens, length = _stage(data, dev, stats)
+        if vocab_size <= LAZY_VOCAB_MAX:
+            # With detailed_stats the detailed loop ignores this seed: it is
+            # counted there only so the phases match the JAX trainer's.
+            state["ub_seed_block"] = _host_seed(data, dev, stats)
     return train_device(
         tokens, length, vocab_size, **state, verbose=verbose, chunk_rounds=chunk_rounds,
         shrink=shrink, stats=stats, checkpoint_dir=checkpoint_dir,
@@ -130,6 +169,7 @@ def train_device(
     merges: Optional[torch.Tensor] = None,
     occupancy: Optional[torch.Tensor] = None,
     k: int = 0,
+    ub_seed_block: Optional[torch.Tensor] = None,
     verbose: bool = False,
     chunk_rounds: int = 64,
     shrink: bool = True,
@@ -144,12 +184,16 @@ def train_device(
     :func:`upload`), globally compacted; the compute path of :func:`train`.
     ``tokens`` is consumed (rewritten in place by the merge passes). A
     resumed run passes the state so far: ``merges`` (int32[M, 3], PAD
-    rows past ``k``), ``occupancy`` (int32[M]) and ``k``.
+    rows past ``k``), ``occupancy`` (int32[M]) and ``k``. A fresh byte
+    corpus may pass ``ub_seed_block``, its (256, 256) byte-pair histogram
+    from :func:`upload`, to seed the lazy path's table; without one the
+    table is counted from ``tokens`` on the device.
 
     ``detailed_stats`` switches to an instrumented per-round loop that
     times selection and merge separately (the reference's per-phase
     taxonomy, utils/time_statistics.zig:36-60) at the price of a host sync
-    per phase and round; like the JAX trainer's, it writes no checkpoint.
+    per phase and round; like the JAX trainer's, it writes no checkpoint
+    and seeds its table on the device, leaving ``ub_seed_block`` unused.
     """
     dev = tokens.device
     M = vocab_size - core.VOCAB_START
@@ -169,7 +213,10 @@ def train_device(
     lazy = vocab_size <= LAZY_VOCAB_MAX
     if lazy:
         with stats.phase("count_pairs", dev):
-            ub = core.pair_histogram(tokens, vocab_size)
+            if ub_seed_block is not None:
+                ub = _place_byte_hist(ub_seed_block, vocab_size)
+            else:
+                ub = core.pair_histogram(tokens, vocab_size)
 
     chunks_done = 0
     while k < M and length >= 2:

@@ -3,8 +3,11 @@ utils/read_file.zig:3-13), mmap views of large corpora, multi-file corpora
 read as one concatenated byte string, and per-host byte ranges for
 multi-host loading (each host reads only its contiguous slice).
 
-Counterpart of ``zigbpe_tpu/utils/fileio.py`` with plain Python reads in
-place of its optional C++ fast path; the results are the same.
+Counterpart of ``zigbpe_tpu/utils/fileio.py``. Whole-file reads stay in
+Python, where the JAX package takes its optional C++ reader: the port's copy
+of that reader (``native/fastio.read_file``) took 2.05-2.26x as long as
+``Path.read_bytes`` on an H100 host (``python -m zigbpe_tpu_torch.probes
+seed``, PERF.md section 5). The results are the same.
 """
 
 from __future__ import annotations
