@@ -46,7 +46,15 @@ Phases, each of which must pass:
              exact but dot_tn on normal values, rtol 1e-4, atol 1e-3), and
              rows_to_column and transpose also at ragged, misaligned, 2^25
              and tall (2^22, 1) shapes, each launch's geometry against the
-             Python plan. Each is timed against its twin (and one PyTorch
+             Python plan; onehot_dot exactly at 2^25 seeded tokens, on a
+             column whose bin (0, 0) passes 2^24 and at ragged n, and
+             dot_tn exactly on integer values at (2^20,8)^T(2^20,128) and
+             ragged shapes, on normal values at K = 4096 (bitwise equal over
+             repeats), with both C geometries against onehot_plan and
+             dot_plan; both timed in turns with bincount / matmul at the
+             script's shapes and at 2^25 tokens and (2^20,8)^T(2^20,128)
+             (per call, device time from a CUDA graph, the bound). Each is
+             timed against its twin (and one PyTorch
              call where one computes the same function) in spans of 20
              calls; in turns (kernel, call, call, kernel) with that call:
              copy_blocks with clone at 2^25 int16 and int32, copy_carry and
@@ -54,8 +62,7 @@ Phases, each of which must pass:
              zeros with the probe's tokens, and rows_to_column and transpose
              at the script's shape (also device time from a CUDA graph and
              host enqueue time) and at 2^25 int32, beside their bytes bound;
-             iota_mod_add, dot_tn and onehot_dot also by device time from a
-             CUDA graph. Then
+             iota_mod_add also by device time from a CUDA graph. Then
              ``python -m zigbpe_tpu_torch.probes`` floor, pipeline (both
              tables), budget, alu16, hist and lowering run at full size and
              print their tables;
@@ -155,6 +162,13 @@ is no CUDA device or any phase fails.
 
 builds only the encode kernel, prints its ptxas line, runs phase 4's cases
 and the pass split of phase 8 on the first 1024 serving rows, and stops.
+
+    python3 chip_smoke.py --products [--time-only]
+
+builds the lowering kernels, prints their ptxas lines, holds onehot_dot and
+dot_tn to their twins and their plans (not with --time-only, which any
+version of the two wrappers runs), reads bin (0, 0) of the fault column
+and times both at the five shapes of phase 3, and stops.
 """
 
 from __future__ import annotations
@@ -767,9 +781,10 @@ def check_copies(torch) -> None:
         f"4-12 bytes off == source")
 
 
-def in_turns(fn_a, fn_b, device) -> tuple[list[float], list[float]]:
+def in_turns(fn_a, fn_b, device, calls: int = 20,
+             runs: int = 5) -> tuple[list[float], list[float]]:
     """per_call_ms of fn_a and fn_b in turns: a, b, b, a."""
-    a1, b1, b2, a2 = (per_call_ms(f, device) for f in (fn_a, fn_b, fn_b, fn_a))
+    a1, b1, b2, a2 = (per_call_ms(f, device, calls, runs) for f in (fn_a, fn_b, fn_b, fn_a))
     return [a1, a2], [b1, b2]
 
 
@@ -842,9 +857,10 @@ def time_copy(torch, name: str, x, card: str) -> tuple[float, float]:
 def check_lowering(torch, card: str) -> dict:
     """Every lowering construct against its twin at the script's shapes, on
     the script's values and on seeded ones (exact), dot_tn also on normal
-    values (within DOT_RTOL, DOT_ATOL), and the redesigned copies on
-    check_copies' cases; then each kernel timed (the copies by
-    time_copy)."""
+    values (within DOT_RTOL, DOT_ATOL), onehot_dot and dot_tn on
+    check_products' cases and the redesigned copies on check_copies'; then
+    each kernel timed (the copies by time_copy, dot_tn and onehot_dot by
+    time_products)."""
     from zigbpe_tpu_torch.ops.kernels import lowering as kl
     from zigbpe_tpu_torch.probes import lowering as lp
 
@@ -871,7 +887,11 @@ def check_lowering(torch, card: str) -> dict:
         worst["dot_tn"] = max(worst["dot_tn"], err)
     log(f"  lowering kernels == twins at the script's shapes (exact; dot_tn on normal values "
         f"within rtol {DOT_RTOL}, atol {DOT_ATOL}): max_abs_err {worst}")
+    for name, err in check_products(torch).items():
+        worst[name] = max(worst[name], err)
     check_copies(torch)
+    products = time_products(torch, card)
+    script = {"dot_tn": PRODUCT_CASES[0][0], "onehot_dot": PRODUCT_CASES[2][0]}
 
     v = lp.inputs(dev)
     x, f, t1 = v["x"], v["f"], v["t1"]
@@ -894,6 +914,8 @@ def check_lowering(torch, card: str) -> dict:
     for name, (kernel, twin, library, (nbytes, flops)) in timed.items():
         if name in COPY_CALLS:
             ms, lib = time_copy(torch, name, x, card)
+        elif name in script:  # time_products timed it in turns with its call
+            ms, lib = products[script[name]]["ms"], products[script[name]]["library_ms"]
         else:
             ms, lib = per_call_ms(kernel, dev), per_call_ms(library, dev) if library else None
         plain = per_call_ms(twin, dev)
@@ -901,16 +923,205 @@ def check_lowering(torch, card: str) -> dict:
         log(f"[probes] {name} at the script's shapes: kernel {ms:.4f} ms, plain PyTorch twin "
             f"{plain:.4f} ms, one PyTorch call {'none' if lib is None else f'{lib:.4f} ms'}, "
             f"bound {bound:.6f} ms ({by}); {card}")
-        if name not in COPY_CALLS:  # time_copy logs the redesigned rows' device times
-            # bincount reads its input's maximum on the host: no graph takes it
-            c_dev = graph_ms(torch, library) if name == "dot_tn" else None
+        if name == "iota_mod_add":  # time_copy and time_products log the others' device times
             k_dev = graph_ms(torch, kernel)
             log(f"[probes] {name} device per call (CUDA graph of 20): kernel {k_dev:.5f} ms, "
-                f"one PyTorch call {'not timed' if c_dev is None else f'{c_dev:.5f} ms'}, "
                 f"bound {bound:.6f} ms, kernel / bound {k_dev / bound:.1f}; {card}")
         out[name] = {"max_abs_err": worst[name], "ms": ms, "plain_ms": plain,
                      "bound_ms": bound, "bound_by": by, "library_ms": lib}
     return out
+
+
+PRODUCT_CASES = (  # (label, kernel, shape): the script's shapes, then shapes the card bounds
+    ("dot_tn (256,128)^T(256,128)", "dot_tn", (256, 128, 128)),
+    ("dot_tn (4096,8)^T(4096,128)", "dot_tn", (4096, 8, 128)),
+    ("onehot_dot (4096,1)", "onehot_dot", (4096,)),
+    ("dot_tn (2^20,8)^T(2^20,128)", "dot_tn", (1 << 20, 8, 128)),
+    ("onehot_dot (2^25,1)", "onehot_dot", (1 << 25,)),
+)
+SPAN_MS = 20.0  # a timed span of a product case holds about this much work
+
+
+def product_case(torch, kernel: str, shape, seed: int = 31):
+    """(kernel call, its one PyTorch call, bytes, bf16 operations) of a
+    timed product case on seeded inputs: integer-valued bf16 in [-2, 2] for
+    dot_tn (a: (K, M), b: (K, N)), tokens in [0, 1024) for onehot_dot
+    (bincount takes no negative token)."""
+    from zigbpe_tpu_torch.ops.kernels import lowering as kl
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kernel == "dot_tn":
+        K, M, N = shape
+        a = torch.randint(-2, 3, (K, M), generator=g, device="cuda").to(torch.bfloat16)
+        b = torch.randint(-2, 3, (K, N), generator=g, device="cuda").to(torch.bfloat16)
+        return (lambda: kl.dot_tn(a, b), lambda: torch.matmul(a.t().float(), b.float()),
+                2 * K * (M + N) + 4 * M * N, 2 * K * M * N)
+    t = torch.randint(0, 1024, (shape[0], 1), generator=g, device="cuda", dtype=torch.int32)
+    return (lambda: kl.onehot_dot(t), lambda: torch.bincount(t.view(-1), minlength=1024),
+            4 * t.numel() + 4 * 1024, 0)
+
+
+def time_products(torch, card: str, cases=PRODUCT_CASES) -> dict:
+    """Each product case in turns with its one PyTorch call (kernel, call,
+    call, kernel; CUDA events, per call) and by device time from a CUDA
+    graph (the kernel, and matmul; bincount reads its input's maximum on
+    the host, so no graph takes it), beside its bound. A span holds about
+    SPAN_MS of work (1-20 calls), so that a slow kernel takes few repeats.
+    Returns {label: {ms, library_ms, device_ms, library_device_ms,
+    bound_ms, bound_by}}."""
+    dev = torch.device("cuda")
+    out = {}
+    for label, name, shape in cases:
+        kernel, library, nbytes, flops = product_case(torch, name, shape)
+        one = min(time_runs(kernel, dev, 2))
+        calls = max(1, min(20, int(SPAN_MS / max(one, 1e-3))))
+        replays = max(1, min(10, int(SPAN_MS / max(one * calls, 1e-3))))
+        ks, cs = in_turns(kernel, library, dev, calls, 5 if calls > 1 else 2)
+        k_dev = graph_ms(torch, kernel, calls, replays)
+        c_dev = graph_ms(torch, library, calls, replays) if name == "dot_tn" else None
+        bound, by = bound_ms(nbytes, flops)
+        ms, lib = statistics.fmean(ks), statistics.fmean(cs)
+        call = "matmul of the casts" if name == "dot_tn" else "bincount"
+        log(f"[products] {label}: per call (turns kernel, call, call, kernel; spans of "
+            f"{calls}) kernel {ms:.5f} ms ({ks[0]:.5f}, {ks[1]:.5f}), {call} {lib:.5f} ms "
+            f"({cs[0]:.5f}, {cs[1]:.5f}); device per call (CUDA graph of {calls}, {replays} "
+            f"replays) kernel {k_dev:.5f} ms, {call} "
+            f"{'no graph' if c_dev is None else f'{c_dev:.5f} ms'}; bound {bound:.6f} ms "
+            f"({by}), kernel device / bound {k_dev / bound:.2f}; {card}")
+        out[label] = {"ms": ms, "library_ms": lib, "device_ms": k_dev,
+                      "library_device_ms": c_dev, "bound_ms": bound, "bound_by": by}
+        del kernel, library
+    return out
+
+
+FAULT_BIN = (1 << 24) + (1 << 20)  # bin (0, 0) of the fault column: 17,825,792
+ONEHOT_PLAN_NS = (16, 4096, 4112, 5 * 16384 + 48, 1 << 25, (1 << 25) + 16, (1 << 32) + 16)
+DOT_PLAN_SHAPES = ((256, 128, 128), (4096, 128, 8), (1 << 20, 128, 8), (4112, 48, 24),
+                   (272, 208, 8), (512, 512, 256), (16, 16, 8), (1 << 33, 128, 8))  # (K, P, Q)
+DOT_EXACT_SHAPES = ((1 << 20, 8, 128), (4112, 48, 24), (272, 8, 208), (512, 512, 256),
+                    (16, 16, 8), (4096, 128, 128))  # (K, M, N) of a and b
+
+
+def fault_column(torch):
+    """2^25 tokens: 2^24 zeros, then 2^20 groups of 16 that each hold one 0
+    and fifteen 1s. Bin (0, 0) must read FAULT_BIN, past the integers f32
+    holds exactly (2^24): an f32 count that holds 2^24 stays there when 1
+    is added."""
+    tail = torch.ones((1 << 20, 16), dtype=torch.int32, device="cuda")
+    tail[:, 0] = 0
+    zeros = torch.zeros(1 << 24, dtype=torch.int32, device="cuda")
+    return torch.cat([zeros, tail.view(-1)]).view(-1, 1)
+
+
+def check_product_plans(torch) -> None:
+    """The geometry the C entries of onehot_dot and dot_tn launch (kinds 2
+    and 3 of zbpe_lowering_plan) equals onehot_plan and dot_plan at the
+    card's SM count and occupancy, on the script's, the scaled and ragged
+    shapes and on n and K past 2^32 (no memory is read); both sides refuse
+    a pointer off 16 bytes."""
+    from zigbpe_tpu_torch.ops.kernels import lowering as kl
+
+    buf = torch.zeros(64, dtype=torch.int32, device="cuda")
+    ptr = buf.data_ptr()
+    for n in ONEHOT_PLAN_NS:
+        shown = kl.OnehotPlan(*kl.device_plan(kl.onehot_dot, ptr, 0, n))
+        want = kl.onehot_plan(n, ptr, shown.sms, shown.blocks_per_sm)
+        require(shown == want, f"onehot_dot geometry at n={n}: C side {shown} != plan {want}")
+    for K, P, Q in DOT_PLAN_SHAPES:
+        shown = kl.DotPlan(*kl.device_plan(kl.dot_tn, ptr, ptr + 16, K, P, Q))
+        want = kl.dot_plan(K, P, Q, ptr, ptr + 16, shown.sms)
+        require(shown == want, f"dot_tn geometry at {(K, P, Q)}: C side {shown} != plan {want}")
+    for call in (lambda: kl.device_plan(kl.onehot_dot, ptr + 4, 0, 4096),
+                 lambda: kl.onehot_plan(4096, ptr + 4, 132, 1),
+                 lambda: kl.device_plan(kl.dot_tn, ptr + 8, ptr, 256, 128, 128),
+                 lambda: kl.dot_plan(256, 128, 128, ptr + 8, ptr, 132)):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise PhaseError("a plan took a pointer off 16 bytes")
+    log(f"  onehot_dot and dot_tn: C geometry == Python plan on {len(ONEHOT_PLAN_NS)} and "
+        f"{len(DOT_PLAN_SHAPES)} shapes ({shown.sms} SMs), both refuse pointers off 16 bytes")
+
+
+def check_products(torch) -> dict:
+    """onehot_dot and dot_tn at the shapes the card bounds, against their
+    twins: onehot_dot exactly at 2^25 seeded tokens in [-200, 1300), on the
+    fault column (bin (0, 0) == FAULT_BIN), at ragged n and on a view 4
+    bytes past 16; dot_tn exactly on integer-valued bf16 in [-2, 2] at
+    DOT_EXACT_SHAPES (every partial sum below 2^22, so any order is exact),
+    within DOT_RTOL, DOT_ATOL on normal values at K = 4096, and bitwise
+    equal over repeats (the split order fold). Then check_product_plans.
+    Returns the worst max_abs_err of each."""
+    from zigbpe_tpu_torch.ops.kernels import lowering as kl
+
+    g = torch.Generator(device="cuda").manual_seed(37)
+    worst = {"onehot_dot": 0.0, "dot_tn": 0.0}
+
+    def exact(name, got, want, what):
+        err = abs_err(got, want)
+        require(got.shape == want.shape and got.dtype == want.dtype and err == 0,
+                f"{name} != twin {what}: max_abs_err {err}")
+
+    def tokens(n):
+        return torch.randint(-200, 1300, (n, 1), generator=g, device="cuda", dtype=torch.int32)
+
+    col = fault_column(torch)
+    got = kl.onehot_dot(col)
+    exact("onehot_dot", got, kl.onehot_dot_reference(col), "on the fault column")
+    require(float(got[0, 0]) == FAULT_BIN, f"fault column bin (0, 0) {float(got[0, 0])}")
+    del col
+    for n in (16, 4112, 5 * 16384 + 48, 1 << 25):
+        t = tokens(n)
+        exact("onehot_dot", kl.onehot_dot(t), kl.onehot_dot_reference(t), f"at n={n}")
+    view = tokens(4100).view(-1)[1:4097].view(4096, 1)  # 4 bytes past 16
+    exact("onehot_dot", kl.onehot_dot(view), kl.onehot_dot_reference(view), "4 bytes off")
+    log(f"  onehot_dot == twin (exact): the fault column (bin (0, 0) = {FAULT_BIN}), seeded "
+        f"tokens in [-200, 1300) at n = 16, 4112, 81968 and 2^25, a view 4 bytes off")
+
+    for K, M, N in DOT_EXACT_SHAPES:
+        a = torch.randint(-2, 3, (K, M), generator=g, device="cuda").to(torch.bfloat16)
+        b = torch.randint(-2, 3, (K, N), generator=g, device="cuda").to(torch.bfloat16)
+        exact("dot_tn", kl.dot_tn(a, b), kl.dot_tn_reference(a, b),
+              f"on integer values at ({K},{M})^T({K},{N})")
+    del a, b
+    for M in (128, 8):
+        a = torch.randn((4096, M), generator=g, device="cuda").to(torch.bfloat16)
+        b = torch.randn((4096, 128), generator=g, device="cuda").to(torch.bfloat16)
+        got, want = kl.dot_tn(a, b), kl.dot_tn_reference(a, b)
+        err = abs_err(got, want)
+        require(bool(((got - want).abs() <= DOT_ATOL + DOT_RTOL * want.abs()).all()),
+                f"dot_tn != twin on normal values (4096,{M})^T(4096,128): max_abs_err {err}")
+        worst["dot_tn"] = max(worst["dot_tn"], err)
+        require(all(torch.equal(got, kl.dot_tn(a, b)) for _ in range(5)),
+                f"dot_tn differs between runs at (4096,{M})^T(4096,128)")
+    log(f"  dot_tn == twin (exact) on integer values at (K, M, N) in {DOT_EXACT_SHAPES}; on "
+        f"normal values at K = 4096 within rtol {DOT_RTOL}, atol {DOT_ATOL} (max_abs_err "
+        f"{worst['dot_tn']}), bitwise equal over 5 repeats")
+    check_product_plans(torch)
+    return worst
+
+
+def products_main(torch, card: str, time_only: bool) -> int:
+    """``python3 chip_smoke.py --products [--time-only]``: build the
+    lowering kernels, print their ptxas lines, hold dot_tn and onehot_dot to
+    their twins (check_products; skipped with --time-only, which any
+    version of the two wrappers runs) and time them (time_products)."""
+    from zigbpe_tpu_torch.ops.kernels import _build
+
+    log_ptxas("lowering", _build.build("lowering"))
+    from zigbpe_tpu_torch.ops.kernels import lowering as kl
+
+    if not time_only:
+        check_products(torch)
+    col = fault_column(torch)
+    got = kl.onehot_dot(col)
+    log(f"[products] onehot_dot on the fault column: bin (0, 0) = {float(got[0, 0]):.1f} "
+        f"(the count is {FAULT_BIN}), equal to the twin: "
+        f"{torch.equal(got, kl.onehot_dot_reference(col))}")
+    del col, got
+    time_products(torch, card)
+    return 0
 
 
 COPY_PLAN_CASES = ((262144, 256), (262144, 8), (77, 7), (1, 1), (24, 8), (1025, 25),
@@ -2046,6 +2257,8 @@ def main() -> int:
     log(card)
     if sys.argv[1:] == ["--encode-split"]:
         return split_main(torch, card)
+    if sys.argv[1:2] == ["--products"]:
+        return products_main(torch, card, sys.argv[2:] == ["--time-only"])
     from zigbpe_tpu_torch.ops.kernels import encode as ke, merge as km
 
     t_all = time.perf_counter()

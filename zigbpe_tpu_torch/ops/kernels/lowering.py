@@ -10,10 +10,14 @@ kernels are ``csrc/lowering.cu``:
 - :func:`iota_mod_add`: ``x + column index % m``, int32;
 - :func:`dot_tn`: ``a^T . b`` of bf16 (K, M) and (K, N) in f32, on the
   tensor cores (the (256,128) product and the skinny (4096,8) one); M or N
-  a multiple of 16, the other of 8, K of 16;
+  a multiple of 16, the other of 8, K of 16. K is split over the blocks
+  when the output has few tiles; the splits' partial tiles are folded in
+  split order, so the result is the same from run to run;
 - :func:`onehot_dot`: ``hi^T . lo`` of an int32 token column (n, 1), hi =
   ``(t >> 7) == iota(8)``, lo = ``(t & 127) == iota(128)``: the (8, 128)
   f32 count of the tokens in each bin of [0, 1024); n a multiple of 16.
+  The kernel counts in integers (no products) and rounds each count to f32
+  once, as the twin does, so it is exact at every n.
 
 The TPU script catches a construct that does not lower and prints FAIL;
 these catch nothing: a kernel that does not build raises, and one that is
@@ -23,14 +27,21 @@ A CPU tensor runs the twin; a CUDA tensor launches the kernel or raises.
 Each wrapper's ``launches`` counts its kernel launches, and each launches
 through :class:`_build.Entry`.
 
-:func:`transpose_plan` and :func:`column_plan` state the launch geometry of
-``transpose`` and ``rows_to_column`` as the C entries compute it
-(``transpose_geometry`` and ``column_geometry`` in ``csrc/lowering.cu``,
-whose constants of the same names these are). The wrappers do not call
-them: the C side computes its geometry from the shape and the pointers, so
+:func:`transpose_plan`, :func:`column_plan`, :func:`onehot_plan` and
+:func:`dot_plan` state the launch geometry of ``transpose``,
+``rows_to_column``, ``onehot_dot`` and ``dot_tn`` as the C entries compute
+it (``transpose_geometry``, ``column_geometry``, ``onehot_geometry`` and
+``dot_geometry`` in ``csrc/lowering.cu``, whose constants of the same names
+these are). The wrappers do not call them: the C side computes its
+geometry from the shape and the pointers (and the card's SM count), so
 that a call pays for no Python arithmetic. The CPU tests replay the plans
 element by element, and ``chip_smoke.py`` holds them equal to the C side's
 (:func:`device_plan`) on the card.
+
+``onehot_dot`` and ``dot_tn`` keep one zeroed workspace per device
+(:func:`_work`), which each call leaves zeroed: a call allocates nothing
+and a CUDA graph can capture it after a first call on the device. Calls
+on one device must not overlap in time.
 """
 
 from __future__ import annotations
@@ -50,6 +61,21 @@ VEC = 4               # int32 in a 16-byte vector
 COLUMN_THREADS = 256  # rows_to_column: one element or vector a thread
 GRID_X_MAX = 2**31 - 1
 
+ONEHOT_BINS = 1024      # onehot_dot: 8 hi rows x 128 lo columns
+ONEHOT_THREADS = 1024   # a block, one bin a thread to clear and flush
+ONEHOT_UNROLL = 4       # 16-byte vectors a thread a chunk
+ONEHOT_CHUNK = ONEHOT_THREADS * ONEHOT_UNROLL * VEC  # 16384 tokens
+ONEHOT_MAX_PER = 131071  # chunks a block: fewer than 2^31 tokens
+
+DOT_THREADS = 256       # dot_tn: 8 warps, one k16 step of a stage each
+DOT_WARPS = DOT_THREADS // 32
+DOT_BP = 64             # a block's output tile: DOT_BP x DOT_BQ
+DOT_BQ = 32
+DOT_STAGES = 5          # the ring of stages in shared memory
+DOT_MIN_SPLIT_STEPS = 16  # k16 steps a split takes at least
+DOT_TICKETS = 256       # done tickets at the workspace's head
+DOT_STAGE_ROWS = 16 * DOT_WARPS  # k rows a stage
+
 
 class TransposePlan(NamedTuple):
     tiles_c: int      # tiles along a row of x: block b is tile (b // tiles_c, b % tiles_c)
@@ -63,6 +89,72 @@ class ColumnPlan(NamedTuple):
     vecs: int   # then 16-byte vectors
     tail: int   # then scalars
     grid: int   # blocks; thread i of the grid copies unit i of each part
+
+
+class OnehotPlan(NamedTuple):
+    chunks: int         # ONEHOT_CHUNK-token pieces of the tokens, the last ragged
+    per: int            # chunks a block: block b counts chunks [b * per, b * per + per)
+    grid: int           # ceil(chunks / per)
+    sms: int            # SMs of the card
+    blocks_per_sm: int  # the kernel's occupancy
+
+
+class DotPlan(NamedTuple):
+    tiles_p: int   # DOT_BP-row tiles of the output's P rows ...
+    tiles_q: int   # ... by DOT_BQ-column tiles of its Q columns
+    steps: int     # k16 steps, K / 16
+    per: int       # k16 steps a split: split s takes [s * per, s * per + per)
+    splits: int    # splits of K a tile; block b is tile b // splits, split b % splits
+    grid: int      # tiles_p * tiles_q * splits
+    sms: int       # SMs of the card
+    ws_words: int  # 32-bit words of workspace the call uses: 0 with one split
+
+
+def onehot_plan(n: int, ptr: int, sms: int, blocks_per_sm: int) -> OnehotPlan:
+    """The launch of ``onehot_dot`` on ``n`` tokens at ``ptr`` on a card of
+    ``sms`` SMs that holds ``blocks_per_sm`` of its blocks at once. Refuses
+    what the C entry refuses."""
+    if n < 1 or n % 16:
+        raise ValueError(f"onehot_dot counts a positive multiple of 16 tokens, got {n}")
+    if ptr % 16:
+        raise ValueError(f"onehot_dot reads 16-byte vectors: {ptr:#x} is not 16-byte aligned")
+    chunks = -(-n // ONEHOT_CHUNK)
+    per = min(-(-chunks // min(chunks, sms * blocks_per_sm)), ONEHOT_MAX_PER)
+    grid = -(-chunks // per)
+    if grid > GRID_X_MAX:
+        raise ValueError(f"{n} tokens need {grid} blocks, more than grid.x holds")
+    return OnehotPlan(chunks, per, grid, sms, blocks_per_sm)
+
+
+def dot_plan(K: int, P: int, Q: int, x_ptr: int, y_ptr: int, sms: int) -> DotPlan:
+    """The launch of ``dot_tn``'s kernel on X (K, P) at ``x_ptr`` and Y
+    (K, Q) at ``y_ptr`` (the wrapper's swap already made) on a card of
+    ``sms`` SMs: enough splits of K a tile to fill min(sms, DOT_TICKETS)
+    blocks, each at least DOT_MIN_SPLIT_STEPS k16 steps. Refuses what the C
+    entry refuses."""
+    if K < 1 or P < 1 or Q < 1 or K % 16 or P % 16 or Q % 8 or max(P, Q) > 2**31 - 1:
+        raise ValueError(f"dot_tn's kernel takes K % 16, P % 16 and Q % 8 == 0, got "
+                         f"({K}, {P}, {Q})")
+    if x_ptr % 16 or y_ptr % 16:
+        raise ValueError("dot_tn copies 16-byte chunks: both inputs must be 16-byte aligned")
+    tiles_p, tiles_q = -(-P // DOT_BP), -(-Q // DOT_BQ)
+    tiles = tiles_p * tiles_q
+    if tiles > GRID_X_MAX:
+        raise ValueError(f"({P}, {Q}) needs {tiles} tiles, more than grid.x holds")
+    steps = K // 16
+    splits = max(1, min(-(-min(sms, DOT_TICKETS) // tiles), steps // DOT_MIN_SPLIT_STEPS))
+    per = -(-steps // splits)
+    splits = -(-steps // per)
+    grid = tiles * splits
+    ws = DOT_TICKETS + grid * DOT_BP * DOT_BQ if splits > 1 else 0
+    return DotPlan(tiles_p, tiles_q, steps, per, splits, grid, sms, ws)
+
+
+def dot_work_words(sms: int) -> int:
+    """The workspace ``dot_tn`` keeps on a card of ``sms`` SMs: the most any
+    shape's :func:`dot_plan` uses (splits > 1 only when a tile count below
+    min(sms, DOT_TICKETS) leaves the grid under twice that)."""
+    return DOT_TICKETS + 2 * min(sms, DOT_TICKETS) * DOT_BP * DOT_BQ
 
 
 def transpose_plan(rows: int, cols: int, src_ptr: int, dst_ptr: int) -> TransposePlan:
@@ -171,8 +263,33 @@ P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROWS_TO_COLUMN = _build.Entry("lowering", "zbpe_rows_to_column", (P, P, LL))
 _TRANSPOSE = _build.Entry("lowering", "zbpe_transpose", (P, P, LL, LL))
 _IOTA_MOD_ADD = _build.Entry("lowering", "zbpe_iota_mod_add", (P, P, I, I, I))
-_DOT_TN = _build.Entry("lowering", "zbpe_dot_tn", (P, P, P, I, I, I, I, I))
-_ONEHOT_DOT = _build.Entry("lowering", "zbpe_onehot_dot", (P, P, I))
+_DOT_TN = _build.Entry("lowering", "zbpe_dot_tn", (P, P, P, LL, LL, LL, LL, LL, P, LL))
+_ONEHOT_DOT = _build.Entry("lowering", "zbpe_onehot_dot", (P, P, LL, P))
+_works: dict = {}  # (kernel, device index) -> its zeroed workspace
+
+
+def _work(kernel: str, index: int) -> torch.Tensor:
+    """The zeroed workspace of ``kernel`` ("onehot_dot": ONEHOT_BINS + 1
+    int64, the counts and the done ticket; "dot_tn": dot_work_words int32,
+    the tickets and the splits' partial tiles) on CUDA device ``index``,
+    made at its first call there. Each launch leaves it zeroed."""
+    work = _works.get((kernel, index))
+    if work is None:
+        dev = torch.device("cuda", index)
+        if kernel == "onehot_dot":
+            work = torch.zeros(ONEHOT_BINS + 1, dtype=torch.int64, device=dev)
+        else:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            work = torch.zeros(dot_work_words(sms), dtype=torch.int32, device=dev)
+        _works[kernel, index] = work
+    return work
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and starting on 16 bytes (a copy when a view's
+    offset puts it elsewhere)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _int_on_card(x: torch.Tensor, name: str) -> bool:
@@ -236,14 +353,16 @@ def dot_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _cuda(a, "dot_tn")
     _cuda(b, "dot_tn")
     swap = _dot_layout(a, b)
-    a, b = a.contiguous(), b.contiguous()
+    a, b = _aligned(a), _aligned(b)
     (K, M), N = a.shape, b.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     if swap:  # D'[n][m] = sum_k b[k][n] a[k][m], stored at out[m][n]
         args = (b.data_ptr(), a.data_ptr(), out.data_ptr(), K, N, M, 1, N)
     else:
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), K, M, N, N, 1)
-    _DOT_TN(a.get_device(), *args)
+    index = a.get_device()
+    work = _work("dot_tn", index)
+    _DOT_TN(index, *args, work.data_ptr(), work.numel())
     dot_tn.launches += 1
     return out
 
@@ -254,9 +373,11 @@ def onehot_dot(t: torch.Tensor) -> torch.Tensor:
         return onehot_dot_reference(t)
     _cuda(t, "onehot_dot")
     _check_tokens(t)
-    t = t.contiguous()
+    t = _aligned(t)
     out = torch.empty((HI_ROWS, LAYOUT), dtype=torch.float32, device=t.device)
-    _ONEHOT_DOT(t.get_device(), t.data_ptr(), out.data_ptr(), t.shape[0])
+    index = t.get_device()
+    _ONEHOT_DOT(index, t.data_ptr(), out.data_ptr(), t.shape[0],
+                _work("onehot_dot", index).data_ptr())
     onehot_dot.launches += 1
     return out
 
@@ -267,16 +388,20 @@ for _fn in KERNELS:
 
 
 def device_plan(kernel, src_ptr: int, dst_ptr: int, *shape: int) -> tuple[int, ...]:
-    """The geometry that the C entry of ``rows_to_column`` (shape: n) or
-    ``transpose`` (shape: rows, cols) launches for these pointers on the
-    current device, as ``zbpe_lowering_plan`` reports it: the fields of
-    :class:`ColumnPlan` or :class:`TransposePlan`."""
+    """The geometry that the C entry of ``rows_to_column`` (shape: n),
+    ``transpose`` (rows, cols), ``onehot_dot`` (n; src_ptr the tokens) or
+    ``dot_tn``'s kernel (K, P, Q; src_ptr X, dst_ptr Y) launches for these
+    pointers on the current device, as ``zbpe_lowering_plan`` reports it:
+    the fields of :class:`ColumnPlan`, :class:`TransposePlan`,
+    :class:`OnehotPlan` or :class:`DotPlan`."""
     fn = _build.library("lowering").zbpe_lowering_plan
     fn.restype = ctypes.c_int
-    fn.argtypes = [I, P, P, LL, LL, P]
-    out = (LL * 4)()
-    kind = {rows_to_column: 0, transpose: 1}[kernel]
-    rc = fn(kind, src_ptr, dst_ptr, shape[0], shape[-1], out)
+    fn.argtypes = [I, P, P, LL, LL, LL, P]
+    out = (LL * 8)()
+    kind, fields = {rows_to_column: (0, ColumnPlan), transpose: (1, TransposePlan),
+                    onehot_dot: (2, OnehotPlan), dot_tn: (3, DotPlan)}[kernel]
+    a, b, c = (*shape, 0, 0)[:3]
+    rc = fn(kind, src_ptr, dst_ptr, a, b, c, out)
     if rc:
         raise ValueError(f"zbpe_lowering_plan refused {kernel.__name__} {shape}: CUDA error {rc}")
-    return tuple(out)
+    return tuple(out[:len(fields._fields)])
