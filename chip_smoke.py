@@ -62,7 +62,13 @@ Phases, each of which must pass:
              zeros with the probe's tokens, and rows_to_column and transpose
              at the script's shape (also device time from a CUDA graph and
              host enqueue time) and at 2^25 int32, beside their bytes bound;
-             iota_mod_add also by device time from a CUDA graph. Then
+             iota_mod_add also by device time from a CUDA graph; then
+             iota_mod_add exactly at (32, 128), (7, 5), (64, 1000) and
+             (262144, 128) for several m, on a view 4 bytes off 16 (also
+             through its entry: the scalar path) and past 2^32 elements
+             on both paths (row slices), its geometry against iota_plan,
+             and timed at 2^25 in turns with torch.add(x, r) and by device
+             time beside its bytes bound. Then
              ``python -m zigbpe_tpu_torch.probes`` floor, pipeline (both
              tables), budget, alu16, hist and lowering run at full size and
              print their tables;
@@ -165,10 +171,11 @@ and the pass split of phase 8 on the first 1024 serving rows, and stops.
 
     python3 chip_smoke.py --products [--time-only]
 
-builds the lowering kernels, prints their ptxas lines, holds onehot_dot and
-dot_tn to their twins and their plans (not with --time-only, which any
-version of the two wrappers runs), reads bin (0, 0) of the fault column
-and times both at the five shapes of phase 3, and stops.
+builds the lowering kernels, prints their ptxas lines, holds onehot_dot,
+dot_tn and iota_mod_add to their twins and their plans (not with
+--time-only, which any version of the three wrappers runs), reads bin
+(0, 0) of the fault column, times the products at the five shapes of
+phase 3 and iota_mod_add at 2^25, and stops.
 """
 
 from __future__ import annotations
@@ -858,9 +865,10 @@ def check_lowering(torch, card: str) -> dict:
     """Every lowering construct against its twin at the script's shapes, on
     the script's values and on seeded ones (exact), dot_tn also on normal
     values (within DOT_RTOL, DOT_ATOL), onehot_dot and dot_tn on
-    check_products' cases and the redesigned copies on check_copies'; then
-    each kernel timed (the copies by time_copy, dot_tn and onehot_dot by
-    time_products)."""
+    check_products' cases, the redesigned copies on check_copies' and
+    iota_mod_add on check_iota's; then each kernel timed (the copies by
+    time_copy, dot_tn and onehot_dot by time_products, iota_mod_add at 2^25
+    by time_iota)."""
     from zigbpe_tpu_torch.ops.kernels import lowering as kl
     from zigbpe_tpu_torch.probes import lowering as lp
 
@@ -890,7 +898,9 @@ def check_lowering(torch, card: str) -> dict:
     for name, err in check_products(torch).items():
         worst[name] = max(worst[name], err)
     check_copies(torch)
+    check_iota(torch)
     products = time_products(torch, card)
+    time_iota(torch, card)
     script = {"dot_tn": PRODUCT_CASES[0][0], "onehot_dot": PRODUCT_CASES[2][0]}
 
     v = lp.inputs(dev)
@@ -992,6 +1002,120 @@ def time_products(torch, card: str, cases=PRODUCT_CASES) -> dict:
                       "library_device_ms": c_dev, "bound_ms": bound, "bound_by": by}
         del kernel, library
     return out
+
+
+IOTA_BIG = (262144, 128)  # 2^25 int32: where iota_mod_add's bytes count
+IOTA_CASES = (((32, 128), 4), ((7, 5), 1), ((7, 5), 3), ((64, 1000), 7), (IOTA_BIG, 4),
+              (IOTA_BIG, 128), (IOTA_BIG, 1000))  # (shape, m), exact against the twin
+# past 2^32 elements (4,295,098,368 each, 16 GiB of int32): odd cols take
+# the scalar path, cols % 4 == 0 the vector one
+IOTA_WIDE = (("scalar", (131072, 32769), 1000), ("vector", (32768, 131076), 7))
+IOTA_PLAN_SHAPES = ((32, 128), (7, 5), (64, 1000), IOTA_BIG, (131072, 32769), (32768, 131076),
+                    (1, 1), (3, 4 << 20), (1 << 28, 1))  # the last at grid.y's limit
+
+
+def check_iota(torch) -> None:
+    """iota_mod_add exactly against its twin on seeded int32 at IOTA_CASES
+    and on a (64, 1000) view 4 bytes past 16 (through the wrapper, which
+    aligns it, and through the entry on the view's own pointers: the scalar
+    path); each launch's geometry as the C side computes it (kind 4 of
+    zbpe_lowering_plan) equal to iota_plan, also at IOTA_PLAN_SHAPES
+    without a launch. Then past 2^32 elements, one IOTA_WIDE shape a path,
+    in sequence with memory freed between: the first 64 rows, 64 spread
+    through the middle and the last 64 against the twin of those rows
+    (peak about 32 GiB)."""
+    from zigbpe_tpu_torch.ops.kernels import lowering as kl
+
+    g = torch.Generator(device="cuda").manual_seed(47)
+
+    def ints(n):
+        return torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    def plan_check(shape, src, dst, what):
+        shown = kl.IotaPlan(*kl.device_plan(kl.iota_mod_add, src, dst, *shape))
+        want = kl.iota_plan(*shape, src, dst, shown.sms)
+        require(shown == want, f"iota_mod_add geometry {what}: C side {shown} != plan {want}")
+        return shown
+
+    def exact(got, want, what):
+        require(got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want),
+                f"iota_mod_add != twin {what}: max_abs_err {abs_err(got, want)}")
+
+    paths = set()
+    for shape, m in IOTA_CASES:
+        x = ints(shape[0] * shape[1]).view(shape)
+        got = kl.iota_mod_add(x, m)
+        exact(got, kl.iota_mod_add_reference(x, m), f"at {shape}, m = {m}")
+        paths.add(plan_check(shape, x.data_ptr(), got.data_ptr(), f"at {shape}").vec)
+    shape, m, n = (64, 1000), 7, 64000
+    view = ints(n + 4)[1:1 + n].view(shape)  # 4 bytes past 16
+    want = kl.iota_mod_add_reference(view, m)
+    exact(kl.iota_mod_add(view, m), want, "on a view 4 bytes off 16")
+    buf = torch.full((n + 4,), -7, dtype=torch.int32, device="cuda")
+    src, dst = view.data_ptr(), buf[1:1 + n].data_ptr()
+    paths.add(plan_check(shape, src, dst, "4 bytes off 16").vec)
+    kl._IOTA_MOD_ADD(view.get_device(), src, dst, *shape, m)
+    full = torch.full_like(buf, -7)
+    full[1:1 + n] = want.view(-1)
+    exact(buf, full, "through the entry on pointers 4 bytes off 16 (scalar path)")
+    require(paths == {False, True}, f"the cases miss a path: vec in {paths}")
+    ptr = buf.data_ptr()
+    for shape in IOTA_PLAN_SHAPES:
+        for off in (0, 4):
+            plan_check(shape, ptr + off, ptr, f"at {shape}, {off} bytes off (no launch)")
+    del view, buf, full, want
+    log(f"  iota_mod_add == twin (exact) at (shape, m) in {IOTA_CASES} and on a view 4 bytes "
+        f"off 16 (wrapper and entry); C geometry == iota_plan on each launch and at "
+        f"{len(IOTA_PLAN_SHAPES)} shapes x 2 offsets; paths vector and scalar")
+    for label, shape, m in IOTA_WIDE:
+        t0 = time.perf_counter()
+        x = torch.empty(shape, dtype=torch.int32, device="cuda")
+        x.random_(-2**31, 2**31 - 1, generator=g)
+        out = kl.iota_mod_add(x, m)
+        plan = plan_check(shape, x.data_ptr(), out.data_ptr(), f"at {shape}")
+        require(plan.vec == (label == "vector"), f"{shape} took the wrong path: {plan}")
+        rows = shape[0]
+        idx = torch.cat([torch.arange(64), torch.linspace(64, rows - 65, 64).long(),
+                         torch.arange(rows - 64, rows)]).cuda()
+        exact(out[idx], kl.iota_mod_add_reference(x[idx], m), f"at {shape} ({label} path), "
+              f"rows {idx[:3].tolist()} ... {idx[-3:].tolist()}")
+        log(f"  iota_mod_add == twin (exact) past 2^32 elements: {shape} = {x.numel():,} "
+            f"int32, m = {m}, the {label} path, on 192 rows (first, middle spread, last); "
+            f"plan {tuple(plan)} ({time.perf_counter() - t0:.1f} s)")
+        del x, out, idx
+        torch.cuda.empty_cache()
+
+
+def time_iota(torch, card: str) -> None:
+    """iota_mod_add at IOTA_BIG with m = 4: per call in turns with the
+    yardstick ``torch.add(x, r)``, r = arange(cols) % m made once outside
+    the span (one PyTorch call over the same bytes, not the same function),
+    and by device time from a CUDA graph of 20 calls; beside the bytes
+    bound. Then device time at the script's (32, 128), where launch latency
+    bounds it."""
+    from zigbpe_tpu_torch.ops.kernels import lowering as kl
+    from zigbpe_tpu_torch.probes import lowering as lp
+
+    dev = torch.device("cuda")
+    x = torch.randint(-2**31, 2**31 - 1, IOTA_BIG, device="cuda", dtype=torch.int32,
+                      generator=torch.Generator(device="cuda").manual_seed(43))
+    r = (torch.arange(IOTA_BIG[1], device="cuda", dtype=torch.int32) % 4)
+    kernel, add = lambda: kl.iota_mod_add(x, 4), lambda: torch.add(x, r)
+    require(torch.equal(kernel(), add()), "iota_mod_add != torch.add(x, r) at 2^25")
+    ks, cs = in_turns(kernel, add, dev)
+    k_dev, c_dev = graph_ms(torch, kernel), graph_ms(torch, add)
+    bound, by = bound_ms(2 * x.numel() * 4)
+    ms, add_ms = statistics.fmean(ks), statistics.fmean(cs)
+    log(f"[iota] iota_mod_add at {IOTA_BIG} = 2^25 int32, m = 4: per call (turns kernel, add, "
+        f"add, kernel) kernel {ms:.5f} ms ({ks[0]:.5f}, {ks[1]:.5f}), yardstick torch.add(x, r) "
+        f"{add_ms:.5f} ms ({cs[0]:.5f}, {cs[1]:.5f}); device per call (CUDA graph of 20) kernel "
+        f"{k_dev:.5f} ms, torch.add {c_dev:.5f} ms; bound {bound:.6f} ms ({by}), kernel device "
+        f"/ bound {k_dev / bound:.3f}, bound / kernel device {bound / k_dev:.3f}; {card}")
+    small = lp.inputs(dev)["x"]
+    runs = [graph_ms(torch, lambda: kl.iota_mod_add(small, 4)) for _ in range(3)]
+    log(f"[iota] iota_mod_add at {tuple(small.shape)}, m = 4: device per call (CUDA graph of 20, "
+        f"3 graphs) {', '.join(f'{ms * 1e3:.4f}' for ms in runs)} us; {card}")
 
 
 FAULT_BIN = (1 << 24) + (1 << 20)  # bin (0, 0) of the fault column: 17,825,792
@@ -1104,9 +1228,10 @@ def check_products(torch) -> dict:
 
 def products_main(torch, card: str, time_only: bool) -> int:
     """``python3 chip_smoke.py --products [--time-only]``: build the
-    lowering kernels, print their ptxas lines, hold dot_tn and onehot_dot to
-    their twins (check_products; skipped with --time-only, which any
-    version of the two wrappers runs) and time them (time_products)."""
+    lowering kernels, print their ptxas lines, hold dot_tn, onehot_dot and
+    iota_mod_add to their twins and plans (check_products, check_iota;
+    skipped with --time-only, which any version of the three wrappers runs)
+    and time them (time_products, time_iota)."""
     from zigbpe_tpu_torch.ops.kernels import _build
 
     log_ptxas("lowering", _build.build("lowering"))
@@ -1114,6 +1239,7 @@ def products_main(torch, card: str, time_only: bool) -> int:
 
     if not time_only:
         check_products(torch)
+        check_iota(torch)
     col = fault_column(torch)
     got = kl.onehot_dot(col)
     log(f"[products] onehot_dot on the fault column: bin (0, 0) = {float(got[0, 0]):.1f} "
@@ -1121,6 +1247,7 @@ def products_main(torch, card: str, time_only: bool) -> int:
         f"{torch.equal(got, kl.onehot_dot_reference(col))}")
     del col, got
     time_products(torch, card)
+    time_iota(torch, card)
     return 0
 
 

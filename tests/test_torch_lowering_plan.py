@@ -1,7 +1,7 @@
 """The launch geometry of the redesigned kernels of ``csrc/lowering.cu``
-(the copies ``transpose`` and ``rows_to_column``, and ``onehot_dot`` and
-``dot_tn``) and the lean launch helper (``ops/kernels/_build.Entry``), on
-the CPU.
+(the copies ``transpose`` and ``rows_to_column``, ``iota_mod_add``, and
+``onehot_dot`` and ``dot_tn``) and the lean launch helper
+(``ops/kernels/_build.Entry``), on the CPU.
 
 A CUDA kernel cannot run here, so these tests replay its index map in
 numpy: every block and thread of ``transpose_plan`` / ``column_plan``
@@ -9,7 +9,9 @@ writes what the kernel's loops write, through the same swizzled tile in
 shared memory, and each element of the output must be written exactly
 once, with its source element, by 16-byte vectors only where both ends are
 16-byte aligned. The replay also checks the shared-memory banks of the
-vector paths. ``onehot_plan`` must read each token once; ``dot_plan`` must
+vector paths. ``iota_plan`` must write each element once, with its
+column's ``c % m`` carried from one division a thread; ``onehot_plan``
+must read each token once; ``dot_plan`` must
 load and multiply each k row of each output tile once, through the ring of
 stages, and its fold in split order must give the twin's result exactly on
 integer values. ``chip_smoke.py`` holds the plans equal to the geometry the
@@ -180,6 +182,8 @@ def test_plans_take_tall_wide_and_large_shapes(shape):
     (lambda: klow.transpose_plan(0, 5, 0, 0), "non-empty"),
     (lambda: klow.column_plan(0, 0, 0), "at least one"),
     (lambda: klow.column_plan(1 << 40, 4, 0), "more than grid.x holds"),  # scalars
+    (lambda: klow.iota_plan(0, 5, 0, 0, 132), "non-empty"),
+    (lambda: klow.iota_plan(1, (1 << 40) + 1, 0, 0, 132), "more than grid.x holds"),
 ])
 def test_plans_refuse_what_the_kernels_cannot_index(call, match):
     with pytest.raises(ValueError, match=match):
@@ -188,10 +192,12 @@ def test_plans_refuse_what_the_kernels_cannot_index(call, match):
 
 def test_plan_constants_match_the_kernel_source():
     """The plans' constants are csrc/lowering.cu's, and the launch entries'
-    argument types carry n, rows, cols, K, P and Q as 64-bit integers."""
+    argument types carry n, rows, cols, K, P and Q as 64-bit integers
+    (iota_mod_add's rows and cols too)."""
     src = (REPO / "zigbpe_tpu_torch" / "csrc" / "lowering.cu").read_text()
     cu = {m[0]: int(m[1]) for m in re.findall(r"constexpr (?:int|long long) (\w+) = (\d+);", src)}
-    for name in ("TILE", "TILE_THREADS", "VEC", "COLUMN_THREADS", "GRID_X_MAX", "ONEHOT_BINS",
+    for name in ("TILE", "TILE_THREADS", "VEC", "COLUMN_THREADS", "GRID_X_MAX", "GRID_Y_MAX",
+                 "IOTA_THREADS", "IOTA_UNROLL", "ONEHOT_BINS",
                  "ONEHOT_THREADS", "ONEHOT_UNROLL", "ONEHOT_MAX_PER", "DOT_THREADS", "DOT_BP",
                  "DOT_BQ", "DOT_STAGES", "DOT_MIN_SPLIT_STEPS", "DOT_TICKETS"):
         assert cu[name] == getattr(klow, name), name
@@ -210,11 +216,116 @@ def test_plan_constants_match_the_kernel_source():
             "ws_words, void* stream)") in src
     assert ("int zbpe_onehot_dot(const int* t, float* out, long long n, unsigned long long* ws,"
             "\n                    void* stream)") in src
+    assert ("int zbpe_iota_mod_add(const int* src, int* dst, long long rows, long long cols, "
+            "int m,\n                      void* stream)") in src
+    assert "iota_mod_kernel(const int* __restrict__ src, int* __restrict__ dst, long long rows," \
+        "\n                long long units, int m)" in src
     assert klow._ROWS_TO_COLUMN.argtypes[2] is ctypes.c_longlong
     assert klow._TRANSPOSE.argtypes[2:] == (ctypes.c_longlong, ctypes.c_longlong)
     assert klow._ONEHOT_DOT.argtypes == (klow.P, klow.P, ctypes.c_longlong, klow.P)
+    assert klow._IOTA_MOD_ADD.argtypes == (klow.P, klow.P, ctypes.c_longlong, ctypes.c_longlong,
+                                           ctypes.c_int)
     assert klow._DOT_TN.argtypes == (klow.P, klow.P, klow.P, *[ctypes.c_longlong] * 5, klow.P,
                                      ctypes.c_longlong)
+
+
+# ----------------------------------------------------------- iota_mod_add
+
+IOTA_SHAPES = [(1, 1), (7, 5), (32, 128), (64, 1000)]
+
+
+def replay_iota(rows, cols, src_ptr, dst_ptr, m, sms):
+    """What iota_mod_kernel writes, thread by thread of every block: thread
+    (x, y) of block (i, k) takes unit j = i * bx + x (a 16-byte vector of 4
+    columns, or one column), computes its first column's c % m with one
+    division and the next columns' by a wrap, and walks the rows k * by + y,
+    grid_y * by apart, IOTA_UNROLL at a time. Returns the plan, the number
+    of writes to each element, what each last had added and the most rows
+    a thread took; asserts the alignment of every vector."""
+    plan = klow.iota_plan(rows, cols, src_ptr, dst_ptr, sms)
+    w = W if plan.vec else 1
+    assert plan.units * w == cols and plan.bx * plan.by <= klow.IOTA_THREADS
+    writes = np.zeros(rows * cols, np.int64)
+    added = np.full(rows * cols, -1, np.int64)
+    y, x = np.divmod(np.arange(plan.bx * plan.by), plan.bx)
+    stride, end = plan.grid_y * plan.by * plan.units, rows * plan.units
+    most = 0
+    for i in range(plan.grid_x):
+        j = i * plan.bx + x
+        live = j < plan.units
+        cm = [(w * j[live]) % m]  # the thread's one division
+        for _ in range(1, w):
+            cm.append(np.where(cm[-1] + 1 == m, 0, cm[-1] + 1))
+        for k in range(plan.grid_y):
+            base = (k * plan.by + y[live]) * plan.units + j[live]  # in units
+            taken = np.zeros(base.size, np.int64)
+            while (base < end).any():  # the loop's trip; IOTA_UNROLL rows each
+                for u in range(klow.IOTA_UNROLL):
+                    off = base + u * stride
+                    ok = off < end
+                    if plan.vec:
+                        assert ((src_ptr + 16 * off[ok]) % 16 == 0).all()
+                        assert ((dst_ptr + 16 * off[ok]) % 16 == 0).all()
+                    for c in range(w):
+                        np.add.at(writes, w * off[ok] + c, 1)
+                        added[w * off[ok] + c] = cm[c][ok]
+                    taken += ok
+                base = base + klow.IOTA_UNROLL * stride
+            most = max(most, int(taken.max(initial=0)))
+    return plan, writes, added, most
+
+
+@pytest.mark.parametrize("shape", IOTA_SHAPES)
+@pytest.mark.parametrize("src_off", [0, 4])  # 4: a view whose data starts 4 bytes off 16
+@pytest.mark.parametrize("m", [1, 3, 4, 7, 1000])
+@pytest.mark.parametrize("dst_off,grid_y_max", [(0, klow.GRID_Y_MAX), (8, klow.GRID_Y_MAX),
+                                                (0, 2)])
+@pytest.mark.parametrize("sms", [132, 4])  # the H100's, and a small card
+def test_iota_covers_every_element_once(monkeypatch, shape, src_off, m, dst_off, grid_y_max,
+                                        sms):
+    """Each element written once, with its column's c % m; grid.y's limit
+    lowered to 2 row blocks makes the threads walk past their first trip.
+    An array that IOTA_UNROLL rows a thread would leave under IOTA_UNROLL
+    blocks an SM takes one row a thread."""
+    monkeypatch.setattr(klow, "GRID_Y_MAX", grid_y_max)
+    rows, cols = shape
+    plan, writes, added, most = replay_iota(rows, cols, BASE + src_off, 2 * BASE + dst_off, m,
+                                            sms)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(added, np.arange(rows * cols) % cols % m)
+    assert plan.vec == (src_off == 0 and dst_off == 0 and cols % 4 == 0)
+    assert plan.grid_y <= grid_y_max
+    groups = -(-rows // plan.by)
+    spread = plan.grid_x * groups < sms * klow.IOTA_UNROLL
+    if plan.grid_y < grid_y_max:  # one trip: the grid is one-shot
+        assert most <= (1 if spread else klow.IOTA_UNROLL)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((262144, 128), klow.IotaPlan(True, 32, 32, 8, 1, 8192, 132)),   # 2^25: 4 rows a thread
+    ((131072, 32769), klow.IotaPlan(False, 32769, 256, 1, 129, 32768, 132)),  # past 2^32
+    ((32768, 131076), klow.IotaPlan(True, 32769, 256, 1, 129, 8192, 132)),    # ... vector
+    ((1 << 28, 1), klow.IotaPlan(False, 1, 1, 256, 1, 65535, 132)),  # grid.y's limit: a walk
+    ((32, 128), klow.IotaPlan(True, 32, 32, 8, 1, 4, 132)),  # the script's: a row a thread
+])
+def test_iota_plan_covers_large_shapes_exactly(shape, want):
+    """By arithmetic: the plan's units cover each row once, its row offsets
+    [0, grid_y * by) cover the rows once, each thread takes IOTA_UNROLL rows
+    (one at the script's (32, 128), spread over the card) unless grid.y's
+    limit makes it walk on; past 2^32 elements the last element's index
+    needs 64 bits."""
+    rows, cols = shape
+    plan = klow.iota_plan(rows, cols, BASE, 2 * BASE, 132)
+    assert plan == want
+    w = W if plan.vec else 1
+    assert (plan.grid_x - 1) * plan.bx < plan.units <= plan.grid_x * plan.bx
+    step = plan.grid_y * plan.by
+    walked = [len(range(o, rows, step)) for o in range(step)]
+    assert sum(walked) == rows and sum(walked) * plan.units * w == rows * cols
+    assert max(walked) <= (klow.IOTA_UNROLL if rows * cols >= 1 << 20 else 1) \
+        or plan.grid_y == klow.GRID_Y_MAX
+    if rows * cols > 2**32:
+        assert (rows * cols) % 2**32 == 131072  # what a 32-bit n kept
 
 
 # ------------------------------------------------------------- onehot_dot
@@ -465,10 +576,12 @@ def test_dot_fold_in_split_order_equals_the_twin(shape):
     np.testing.assert_array_equal(fold_dot(a, b), want)
 
 
-@pytest.mark.parametrize("entry,at", [("_ONEHOT_DOT", 2), ("_DOT_TN", 3)])
+@pytest.mark.parametrize("entry,at", [("_ONEHOT_DOT", 2), ("_DOT_TN", 3), ("_IOTA_MOD_ADD", 2),
+                                      ("_IOTA_MOD_ADD", 3)])
 def test_counts_past_32_bits_reach_the_entry_unchanged(monkeypatch, entry, at):
-    """n = 2^32 + 16 tokens (onehot_dot) and K = 2^32 + 16 (dot_tn) cross
-    ctypes whole; under a 32-bit int they arrive as 16."""
+    """n = 2^32 + 16 tokens (onehot_dot), K = 2^32 + 16 (dot_tn) and rows or
+    cols = 2^32 + 16 (iota_mod_add) cross ctypes whole; under a 32-bit int
+    they arrive as 16."""
     _cuda_stubs(monkeypatch)
     e = getattr(klow, entry)
     seen = []

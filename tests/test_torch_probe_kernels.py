@@ -361,11 +361,32 @@ def test_transpose_matches(data):
     np.testing.assert_array_equal(klow.transpose(torch.from_numpy(x)).numpy(), want)
 
 
-@pytest.mark.parametrize("data", ["script", "seeded"])
+IOTA_CASES = {  # (shape, m, a view 4 bytes off 16) on seeded full-range int32
+    "1x1-m1": ((1, 1), 1, False), "7x5-m1": ((7, 5), 1, False), "7x5-m3": ((7, 5), 3, False),
+    "64x1000-m7": ((64, 1000), 7, False), "32x128-m1000": ((32, 128), 1000, False),
+    "64x1000-m7-view": ((64, 1000), 7, True),
+}
+
+
+@pytest.mark.parametrize("data", ["script", "seeded", *IOTA_CASES])
 def test_iota_mod_add_matches(data):
-    x = np.array(_mosaic()["x"]) if data == "script" else _seeded_ints((32, 128))
-    want = _mosaic_run(_mosaic()["lambdas"][3], (32, 128), jnp.int32, x)
-    got = klow.iota_mod_add(torch.from_numpy(x), 4)
+    """The Pallas body at the script's (32, 128) in interpret mode; at the
+    other shapes and moduli the same jnp formula (probe_mosaic_ops.py:47-54
+    with the shape and m as parameters), on values whose sums wrap."""
+    if data in IOTA_CASES:
+        (rows, cols), m, view = IOTA_CASES[data]
+        flat = np.random.default_rng(rows * cols + m).integers(
+            -2**31, 2**31, rows * cols + 1, dtype=np.int32)
+        x = flat[1:] if view else flat[:-1]
+        want = np.asarray(jax.lax.broadcasted_iota(jnp.int32, (rows, cols), 1) % m
+                          + jnp.asarray(x.reshape(rows, cols)))
+        xt = torch.from_numpy(flat)[1:] if view else torch.from_numpy(flat)[:-1]
+        got = klow.iota_mod_add(xt.view(rows, cols), m)
+    else:
+        m = 4
+        x = np.array(_mosaic()["x"]) if data == "script" else _seeded_ints((32, 128))
+        want = _mosaic_run(_mosaic()["lambdas"][3], (32, 128), jnp.int32, x)
+        got = klow.iota_mod_add(torch.from_numpy(x), m)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 

@@ -6,7 +6,7 @@
 //   rows_to_column  try_kernel (pallas_call at :21) on the two reshapes
 //                   (32,128) -> (4096,1) (:29-38): a copy into one column;
 //   transpose       try_kernel on (32,128) -> (128,32) (:40-44);
-//   iota_mod_kernel try_kernel on iota % 4 + x (:45-52), any modulus;
+//   iota_mod_kernel try_kernel on iota % 4 + x (:47-54), any modulus;
 //   dot_tn_kernel   try_kernel on the bf16 product i^T . i of (256,128)
 //                   (:53-63) and skinny (:77, the (4096,8)^T . (4096,128)
 //                   product): a^T . b, bf16 in, f32 out;
@@ -17,13 +17,13 @@
 // On the TPU a construct that does not lower raises and the script prints
 // FAIL; here it fails the build, and a wrong one fails its twin check.
 //
-// What bounds them on an H100. rows_to_column and transpose move 8 bytes
-// an element (one read, one write): 256 MiB at 2^25 int32, 80.1 us at
-// 3.35 TB/s. onehot_dot reads 4 bytes a token (40.1 us at 2^25); dot_tn
-// reads each bf16 input once, 285 MB at (2^20,8)^T . (2^20,128) (85.1 us)
-// against 2.2 us of bf16 tensor-core work, so bytes bound it too. At the
-// script's sizes (a few hundred KB at most) every one is bound by launch
-// latency, a microsecond or two.
+// What bounds them on an H100. rows_to_column, transpose and iota_mod_add
+// move 8 bytes an element (one read, one write): 256 MiB at 2^25 int32,
+// 80.1 us at 3.35 TB/s. onehot_dot reads 4 bytes a token (40.1 us at
+// 2^25); dot_tn reads each bf16 input once, 285 MB at (2^20,8)^T .
+// (2^20,128) (85.1 us) against 2.2 us of bf16 tensor-core work, so bytes
+// bound it too. At the script's sizes (a few hundred KB at most) every
+// one is bound by launch latency, a microsecond or two.
 //
 // What the design does about it.
 // - transpose: one block of TILE_THREADS threads per TILE x TILE int32
@@ -45,8 +45,23 @@
 //   one-shot grid keeps pace with cudaMemcpyAsync (what torch.clone runs),
 //   where a grid of 8 blocks an SM striding over its share did not
 //   (PERF.md).
-// - Both read and write with the streaming cache hint (ld/st.global.cs,
-//   evict first): each byte is touched once. Element offsets are 64-bit.
+// - iota_mod_add: a 2-D grid laid over (row, column unit): a unit is a
+//   16-byte vector of 4 columns when cols % 4 == 0 and both pointers sit
+//   on 16 bytes, else one column. A block is bx units of by rows (bx * by
+//   <= IOTA_THREADS; a row narrower than the block takes several rows, so
+//   a warp still reads neighbouring addresses). A thread keeps its unit and
+//   takes IOTA_UNROLL rows, grid_y * by apart, all loads issued before
+//   their stores (one row when that would leave fewer than IOTA_UNROLL
+//   blocks an SM, so a small array spreads over the card); its columns'
+//   c % m are computed once, with one division while its first loads are in
+//   flight, so an element costs a load, an add and a store. The grid is
+//   one-shot, as column_kernel's and copy.cu's are: a grid of one wave of
+//   blocks on the SMs, each thread walking its rows, ran about 6% slower on
+//   the card (PERF.md). Past grid.y's 65,535 row blocks a thread walks on.
+//   rows and cols cross as 64-bit integers.
+// - All of these read and write with the streaming cache hint
+//   (ld/st.global.cs, evict first): each byte is touched once. Element
+//   offsets are 64-bit.
 // - onehot_dot: a count needs no products. The TPU formed it as bf16
 //   one-hot products summed in f32, which stop counting at 2^24 a bin; the
 //   first port kept that (one block of 8 warps walking n in mma.sync steps,
@@ -90,14 +105,17 @@
 // call leaves it zeroed, allocates nothing and stays capturable by a CUDA
 // graph. Calls on one device must not overlap (one stream at a time).
 // The entries compute their geometry here (transpose_geometry,
-// column_geometry, onehot_geometry, dot_geometry); zbpe_lowering_plan
-// reports it without a launch, and ops/kernels/lowering.py states it again
-// for the CPU tests (transpose_plan, column_plan, onehot_plan, dot_plan).
+// column_geometry, iota_geometry, onehot_geometry, dot_geometry);
+// zbpe_lowering_plan reports it without a launch, and
+// ops/kernels/lowering.py states it again for the CPU tests
+// (transpose_plan, column_plan, iota_plan, onehot_plan, dot_plan).
 //
 // Each entry runs on the caller's stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -108,6 +126,9 @@ constexpr int CHUNKS = TILE / VEC;                         // vectors in a tile 
 constexpr int TILE_STEPS = TILE * CHUNKS / TILE_THREADS;   // vectors a thread moves, each way
 constexpr int COLUMN_THREADS = 256;  // rows_to_column: one element or vector a thread
 constexpr long long GRID_X_MAX = 2147483647;
+constexpr long long GRID_Y_MAX = 65535;
+constexpr int IOTA_THREADS = 256;  // iota_mod_add: a block of bx units x by rows
+constexpr int IOTA_UNROLL = 4;     // rows a thread loads before it stores them
 static_assert(TILE_STEPS * (TILE_THREADS / 32) == TILE / VEC * (CHUNKS / 8),
               "a warp's store step covers 4 tile columns x 8 chunks");
 
@@ -220,10 +241,51 @@ transpose_kernel(const int* __restrict__ src, int* __restrict__ dst, long long r
   }
 }
 
-__global__ void iota_mod_kernel(const int* __restrict__ src, int* __restrict__ dst, int n,
-                                int cols, int m) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) dst[i] = (i % cols) % m + src[i];
+// dst[r][c] = src[r][c] + c % m, read as rows of `units` units (VEC: int4
+// vectors of 4 columns, else int columns). Thread (x, y) of block (i, k)
+// takes unit j = i * blockDim.x + x of rows k * blockDim.y + y + t * step,
+// t = 0, 1, ..., step = gridDim.y * blockDim.y, IOTA_UNROLL rows at a time.
+template <bool VEC>
+__global__ void __launch_bounds__(IOTA_THREADS)
+iota_mod_kernel(const int* __restrict__ src, int* __restrict__ dst, long long rows,
+                long long units, int m) {
+  using Unit = typename std::conditional<VEC, int4, int>::type;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= units) return;
+  // the unit's columns c0, c0 + 1, ... modulo m: one division, then wraps,
+  // computed while the first trip's loads are in flight
+  const unsigned um = (unsigned)m;
+  unsigned cm[VEC ? 4 : 1];
+  bool known = false;
+  const Unit* s = reinterpret_cast<const Unit*>(src) + j;
+  Unit* d = reinterpret_cast<Unit*>(dst) + j;
+  const long long stride = (long long)gridDim.y * blockDim.y * units;  // units between rows
+  const long long end = rows * units;
+  for (long long off = ((long long)blockIdx.y * blockDim.y + threadIdx.y) * units; off < end;
+       off += IOTA_UNROLL * stride) {
+    Unit v[IOTA_UNROLL];
+#pragma unroll
+    for (int u = 0; u < IOTA_UNROLL; ++u)
+      if (off + u * stride < end) v[u] = __ldcs(s + off + u * stride);
+    if (!known) {
+      cm[0] = (unsigned)((VEC ? 4 * j : j) % m);
+#pragma unroll
+      for (int k = 1; k < (VEC ? 4 : 1); ++k) cm[k] = cm[k - 1] + 1 == um ? 0u : cm[k - 1] + 1;
+      known = true;
+    }
+#pragma unroll
+    for (int u = 0; u < IOTA_UNROLL; ++u)
+      if (off + u * stride < end) {
+        Unit o = v[u];
+        if constexpr (VEC) {  // int32 wraps, as the twin's add does
+          o.x = (int)((unsigned)o.x + cm[0]), o.y = (int)((unsigned)o.y + cm[1]);
+          o.z = (int)((unsigned)o.z + cm[2]), o.w = (int)((unsigned)o.w + cm[3]);
+        } else {
+          o = (int)((unsigned)o + cm[0]);
+        }
+        __stcs(d + off + u * stride, o);
+      }
+  }
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -475,8 +537,6 @@ onehot_kernel(const int4* __restrict__ t, float* __restrict__ out, long long n4,
   if (threadIdx.x == 0) ws[ONEHOT_BINS] = 0;
 }
 
-unsigned blocks(long long n, int per) { return (unsigned)((n + per - 1) / per); }
-
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 struct TransposeGeometry {
@@ -531,6 +591,38 @@ cudaError_t device_sms(int* sms) {
     if (e != cudaSuccess) return e;
   }
   *sms = known[dev];
+  return cudaSuccess;
+}
+
+struct IotaGeometry {
+  bool vec;             // 16-byte vectors: cols % VEC == 0 and both pointers on 16 bytes
+  long long units;      // units a row: cols / VEC vectors, else cols columns
+  int bx, by;           // a block: bx units of by rows
+  int grid_x, grid_y;   // ceil(units / bx) blocks across a row, grid_y down the rows
+  int sms;
+};
+
+// The launch of zbpe_iota_mod_add on the current device: bx = min(units,
+// IOTA_THREADS), by = IOTA_THREADS / bx, and a row block for each
+// IOTA_UNROLL by-row groups, or for each group when that leaves fewer than
+// IOTA_UNROLL blocks an SM (a small array spreads over the card); at most
+// GRID_Y_MAX, past which a thread walks on. cudaErrorInvalidValue when the
+// shape is empty or a row's blocks do not fit grid.x.
+cudaError_t iota_geometry(const void* src, const void* dst, long long rows, long long cols,
+                          IotaGeometry* g) {
+  if (rows <= 0 || cols <= 0) return cudaErrorInvalidValue;
+  const cudaError_t e = device_sms(&g->sms);
+  if (e != cudaSuccess) return e;
+  g->vec = cols % VEC == 0 && aligned16(src) && aligned16(dst);
+  g->units = g->vec ? cols / VEC : cols;
+  g->bx = g->units < IOTA_THREADS ? (int)g->units : IOTA_THREADS;
+  g->by = IOTA_THREADS / g->bx;
+  const long long grid_x = (g->units + g->bx - 1) / g->bx;
+  if (grid_x > GRID_X_MAX) return cudaErrorInvalidValue;
+  const long long groups = (rows + g->by - 1) / g->by;
+  const long long per = grid_x * groups < (long long)g->sms * IOTA_UNROLL ? 1 : IOTA_UNROLL;
+  const long long grid_y = (groups + per - 1) / per;
+  g->grid_x = (int)grid_x, g->grid_y = (int)(grid_y < GRID_Y_MAX ? grid_y : GRID_Y_MAX);
   return cudaSuccess;
 }
 
@@ -638,16 +730,18 @@ int zbpe_transpose(const int* src, int* dst, long long rows, long long cols, voi
 // The geometry that zbpe_rows_to_column (kind 0: a = n; out = head,
 // vecs, tail, grid), zbpe_transpose (kind 1: a = rows, b = cols; out =
 // tiles_c, grid, load_vec, store_vec), zbpe_onehot_dot (kind 2: src = t,
-// a = n; out = chunks, per, grid, sms, blocks_per_sm) or zbpe_dot_tn (kind
+// a = n; out = chunks, per, grid, sms, blocks_per_sm), zbpe_dot_tn (kind
 // 3: src = X, dst = Y, a = K, b = P, c = Q; out = tiles_p, tiles_q, steps,
-// per, splits, grid, sms, ws_words) launches for these pointers on the
-// current device, without a launch.
+// per, splits, grid, sms, ws_words) or zbpe_iota_mod_add (kind 4: a = rows,
+// b = cols; out = vec, units, bx, by, grid_x, grid_y, sms)
+// launches for these pointers on the current device, without a launch.
 int zbpe_lowering_plan(int kind, const void* src, const void* dst, long long a, long long b,
                        long long c, long long* out) {
   ColumnGeometry col;
   TransposeGeometry t;
   OnehotGeometry oh;
   DotGeometry d;
+  IotaGeometry io;
   if (kind == 0 && column_geometry(src, dst, a, &col)) {
     out[0] = col.head, out[1] = col.vecs, out[2] = col.tail, out[3] = col.grid;
   } else if (kind == 1 && transpose_geometry(src, dst, a, b, &t)) {
@@ -662,18 +756,30 @@ int zbpe_lowering_plan(int kind, const void* src, const void* dst, long long a, 
     if (e != cudaSuccess) return (int)e;
     out[0] = d.tiles_p, out[1] = d.tiles_q, out[2] = d.steps, out[3] = d.per;
     out[4] = d.splits, out[5] = d.grid, out[6] = d.sms, out[7] = d.ws_words;
+  } else if (kind == 4) {
+    const cudaError_t e = iota_geometry(src, dst, a, b, &io);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = io.vec, out[1] = io.units, out[2] = io.bx, out[3] = io.by;
+    out[4] = io.grid_x, out[5] = io.grid_y, out[6] = io.sms;
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
 }
 
-// dst[r][c] = c % m + src[r][c] (int32).
-int zbpe_iota_mod_add(const int* src, int* dst, int rows, int cols, int m, void* stream) {
+// dst[r][c] = c % m + src[r][c] (int32, rows x cols, rows and cols 64-bit).
+int zbpe_iota_mod_add(const int* src, int* dst, long long rows, long long cols, int m,
+                      void* stream) {
   if (rows <= 0 || cols <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  const int n = rows * cols;
-  iota_mod_kernel<<<blocks(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(src, dst, n,
-                                                                                cols, m);
+  IotaGeometry g;
+  const cudaError_t e = iota_geometry(src, dst, rows, cols, &g);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(g.grid_x, g.grid_y), block(g.bx, g.by);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (g.vec)
+    iota_mod_kernel<true><<<grid, block, 0, st>>>(src, dst, rows, g.units, m);
+  else
+    iota_mod_kernel<false><<<grid, block, 0, st>>>(src, dst, rows, g.units, m);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,10 @@ kernels are ``csrc/lowering.cu``:
 - :func:`rows_to_column`: (rows, cols) int32 -> (rows * cols, 1), read flat
   (both Pallas spellings of the reshape);
 - :func:`transpose`: (rows, cols) int32 -> (cols, rows);
-- :func:`iota_mod_add`: ``x + column index % m``, int32;
+- :func:`iota_mod_add`: ``x + column index % m``, int32, on a grid laid
+  over (row, column unit): a unit is a 16-byte vector of 4 columns when
+  cols % 4 == 0, else one column; a thread computes its columns' ``c % m``
+  once and takes IOTA_UNROLL rows;
 - :func:`dot_tn`: ``a^T . b`` of bf16 (K, M) and (K, N) in f32, on the
   tensor cores (the (256,128) product and the skinny (4096,8) one); M or N
   a multiple of 16, the other of 8, K of 16. K is split over the blocks
@@ -27,10 +30,11 @@ A CPU tensor runs the twin; a CUDA tensor launches the kernel or raises.
 Each wrapper's ``launches`` counts its kernel launches, and each launches
 through :class:`_build.Entry`.
 
-:func:`transpose_plan`, :func:`column_plan`, :func:`onehot_plan` and
-:func:`dot_plan` state the launch geometry of ``transpose``,
-``rows_to_column``, ``onehot_dot`` and ``dot_tn`` as the C entries compute
-it (``transpose_geometry``, ``column_geometry``, ``onehot_geometry`` and
+:func:`transpose_plan`, :func:`column_plan`, :func:`iota_plan`,
+:func:`onehot_plan` and :func:`dot_plan` state the launch geometry of
+``transpose``, ``rows_to_column``, ``iota_mod_add``, ``onehot_dot`` and
+``dot_tn`` as the C entries compute it (``transpose_geometry``,
+``column_geometry``, ``iota_geometry``, ``onehot_geometry`` and
 ``dot_geometry`` in ``csrc/lowering.cu``, whose constants of the same names
 these are). The wrappers do not call them: the C side computes its
 geometry from the shape and the pointers (and the card's SM count), so
@@ -60,6 +64,10 @@ TILE_THREADS = 256    # ... of this many threads
 VEC = 4               # int32 in a 16-byte vector
 COLUMN_THREADS = 256  # rows_to_column: one element or vector a thread
 GRID_X_MAX = 2**31 - 1
+GRID_Y_MAX = 65535
+
+IOTA_THREADS = 256  # iota_mod_add: a block of bx units x by rows
+IOTA_UNROLL = 4     # rows a thread loads before it stores them
 
 ONEHOT_BINS = 1024      # onehot_dot: 8 hi rows x 128 lo columns
 ONEHOT_THREADS = 1024   # a block, one bin a thread to clear and flush
@@ -89,6 +97,16 @@ class ColumnPlan(NamedTuple):
     vecs: int   # then 16-byte vectors
     tail: int   # then scalars
     grid: int   # blocks; thread i of the grid copies unit i of each part
+
+
+class IotaPlan(NamedTuple):
+    vec: bool    # 16-byte vectors: cols % VEC == 0 and both pointers on 16 bytes
+    units: int   # units a row: cols // VEC vectors, else cols columns
+    bx: int      # a block: bx units of a row ...
+    by: int      # ... by rows; thread (x, y) of block (i, k) takes unit i * bx + x
+    grid_x: int  # ceil(units / bx) blocks across a row
+    grid_y: int  # blocks down the rows: a thread steps grid_y * by rows
+    sms: int     # SMs of the card
 
 
 class OnehotPlan(NamedTuple):
@@ -187,6 +205,28 @@ def column_plan(n: int, src_ptr: int, dst_ptr: int) -> ColumnPlan:
     return ColumnPlan(head, vecs, tail, grid)
 
 
+def iota_plan(rows: int, cols: int, src_ptr: int, dst_ptr: int, sms: int) -> IotaPlan:
+    """The launch of ``iota_mod_add`` on a (rows, cols) int32 array at
+    ``src_ptr`` into ``dst_ptr`` on a card of ``sms`` SMs: blocks of bx =
+    min(units, IOTA_THREADS) units by IOTA_THREADS // bx rows, a thread
+    taking IOTA_UNROLL rows, or one where that would leave fewer than
+    IOTA_UNROLL blocks an SM (at most GRID_Y_MAX row blocks, past which a
+    thread walks on). Refuses an empty shape and a row of more blocks than
+    grid.x holds."""
+    if rows < 1 or cols < 1:
+        raise ValueError(f"iota_mod_add needs a non-empty shape, got ({rows}, {cols})")
+    vec = cols % VEC == 0 and src_ptr % 16 == 0 and dst_ptr % 16 == 0
+    units = cols // VEC if vec else cols
+    bx = min(units, IOTA_THREADS)
+    by = IOTA_THREADS // bx
+    grid_x = -(-units // bx)
+    if grid_x > GRID_X_MAX:
+        raise ValueError(f"a row of {cols} needs {grid_x} blocks, more than grid.x holds")
+    groups = -(-rows // by)
+    per = 1 if grid_x * groups < sms * IOTA_UNROLL else IOTA_UNROLL
+    return IotaPlan(vec, units, bx, by, grid_x, min(-(-groups // per), GRID_Y_MAX), sms)
+
+
 def _check_int(x: torch.Tensor, dims: int = 2) -> None:
     if x.dtype != torch.int32 or x.dim() != dims or x.numel() == 0:
         raise ValueError(f"x must be a non-empty {dims}-d int32 tensor, got {x.dtype} "
@@ -262,7 +302,7 @@ def _cuda(x: torch.Tensor, name: str) -> None:
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROWS_TO_COLUMN = _build.Entry("lowering", "zbpe_rows_to_column", (P, P, LL))
 _TRANSPOSE = _build.Entry("lowering", "zbpe_transpose", (P, P, LL, LL))
-_IOTA_MOD_ADD = _build.Entry("lowering", "zbpe_iota_mod_add", (P, P, I, I, I))
+_IOTA_MOD_ADD = _build.Entry("lowering", "zbpe_iota_mod_add", (P, P, LL, LL, I))
 _DOT_TN = _build.Entry("lowering", "zbpe_dot_tn", (P, P, P, LL, LL, LL, LL, LL, P, LL))
 _ONEHOT_DOT = _build.Entry("lowering", "zbpe_onehot_dot", (P, P, LL, P))
 _works: dict = {}  # (kernel, device index) -> its zeroed workspace
@@ -337,7 +377,7 @@ def iota_mod_add(x: torch.Tensor, m: int) -> torch.Tensor:
     _check_int(x)
     if m < 1:
         raise ValueError(f"m must be >= 1, got {m}")
-    x = x.contiguous()
+    x = _aligned(x)
     out = torch.empty_like(x)
     _IOTA_MOD_ADD(x.get_device(), x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], m)
     iota_mod_add.launches += 1
@@ -389,17 +429,19 @@ for _fn in KERNELS:
 
 def device_plan(kernel, src_ptr: int, dst_ptr: int, *shape: int) -> tuple[int, ...]:
     """The geometry that the C entry of ``rows_to_column`` (shape: n),
-    ``transpose`` (rows, cols), ``onehot_dot`` (n; src_ptr the tokens) or
-    ``dot_tn``'s kernel (K, P, Q; src_ptr X, dst_ptr Y) launches for these
-    pointers on the current device, as ``zbpe_lowering_plan`` reports it:
-    the fields of :class:`ColumnPlan`, :class:`TransposePlan`,
-    :class:`OnehotPlan` or :class:`DotPlan`."""
+    ``transpose`` (rows, cols), ``onehot_dot`` (n; src_ptr the tokens),
+    ``dot_tn``'s kernel (K, P, Q; src_ptr X, dst_ptr Y) or ``iota_mod_add``
+    (rows, cols) launches for these pointers on the current device, as
+    ``zbpe_lowering_plan`` reports it: the fields of :class:`ColumnPlan`,
+    :class:`TransposePlan`, :class:`OnehotPlan`, :class:`DotPlan` or
+    :class:`IotaPlan`."""
     fn = _build.library("lowering").zbpe_lowering_plan
     fn.restype = ctypes.c_int
     fn.argtypes = [I, P, P, LL, LL, LL, P]
     out = (LL * 8)()
     kind, fields = {rows_to_column: (0, ColumnPlan), transpose: (1, TransposePlan),
-                    onehot_dot: (2, OnehotPlan), dot_tn: (3, DotPlan)}[kernel]
+                    onehot_dot: (2, OnehotPlan), dot_tn: (3, DotPlan),
+                    iota_mod_add: (4, IotaPlan)}[kernel]
     a, b, c = (*shape, 0, 0)[:3]
     rc = fn(kind, src_ptr, dst_ptr, a, b, c, out)
     if rc:
