@@ -153,11 +153,24 @@ Phases, each of which must pass:
              is skipped; miss: pairs that never occur, so every token is
              probed and nothing hits; the real table; parity: a == b
              singletons), each equal to the twin on 64 rows;
-9. count   — each kernel's launch counter, zeroed just before its path
+9. bench   — the measurement entry points, each through its ``run`` in
+             this process: ``zigbpe_tpu_torch.bench`` at 8 MiB to vocab 512
+             (one timed run); config 2
+             (``scripts.run_config2``) at 16 MiB and 512 merges, equal to
+             the native trainer and through merges.txt and back; config 3
+             (``scripts.run_config3``) at the full 1 GiB, whose 307,958,775
+             tokens out in 47 fused passes must be the TPU run's
+             (CONFIG3_r5.json); ``probes breakdown`` at 8 MiB and 64
+             rounds (its ``full`` equal to the native trainer); ``probes
+             encode`` at 1 GiB under the ``group_merges`` table, giving
+             config 3's tokens out; ``probes select_batch`` at 8 MiB to
+             vocab 512, its three batches equal to the native trainer;
+10. count  — each kernel's launch counter, zeroed just before its path
              (the probe kernels: the six probes of phase 3; merge: phases
-             5-6, and again phase 7, and again dp; encode: the two
-             encode_batch calls of phase 8), is > 0 just after it; each
-             dp-ranks child counts its own from zero.
+             5-6, and again phase 7, and again dp, and again bench;
+             encode: the two encode_batch calls of phase 8, and again
+             bench), is > 0 just after it; each dp-ranks child counts its
+             own from zero.
 
 Prints each phase's result and wall time, then a JSON line of kernels, the
 card's name and power limit, and as the last line
@@ -168,6 +181,11 @@ is no CUDA device or any phase fails.
 
 builds only the encode kernel, prints its ptxas line, runs phase 4's cases
 and the pass split of phase 8 on the first 1024 serving rows, and stops.
+
+    python3 chip_smoke.py --bench
+
+builds the merge and encode kernels and the native library, runs phase 9
+alone, and stops.
 
     python3 chip_smoke.py --products [--time-only]
 
@@ -232,6 +250,16 @@ DP_RANKS_LAZY_VOCAB_MAX = 257
 DP_PARITY = (b"a" * 9000 + b"bc" * 600 + b"a" * 7000, 272)  # a == b runs across ranks
 DP_TINY = (b"aaab", 300)       # fewer bytes than ranks: some start empty
 DP_GROUP_TIMEOUT_S = 300       # a collective that waits longer raises
+# the bench phase: the measurement entry points at sizes that keep it short
+BENCH_BYTES = 8 << 20          # bench (one timed run), breakdown and select_batch
+BENCH_ROUNDS = 64              # breakdown's rounds
+BENCH_SELECT_VOCAB = 512       # select_batch's vocab
+CONFIG2_BYTES = 16 << 20       # config 2 cut from 100 MiB ...
+CONFIG2_MERGES = 512           # ... and 1024 merges
+# config 3 at its full 1 GiB (SERVE_BYTES), as CONFIG3_r5.json recorded it on
+# the TPU: these depend only on the bytes
+CONFIG3_TOKENS_OUT = 307_958_775
+CONFIG3_PASSES = 47
 KERNELS = ("merge", "encode", "copy", "opmix", "hist", "lowering")
 
 
@@ -2363,6 +2391,83 @@ def wide_check(torch, ke, rows, gt_np, gl_np) -> None:
         f"twin, max_abs_err {err}")
 
 
+# ------------------------------------------------------------------ bench
+
+def phase_bench(torch, card):
+    """The port's measurement entry points, called in this process through
+    their ``run`` functions: bench, config 2 and config 3, and the probes
+    breakdown, encode and select_batch. Returns the merge and encode
+    kernels' launches on this path."""
+    from zigbpe_tpu_torch import bench
+    from zigbpe_tpu_torch.ops.kernels import encode as ke, merge as km
+    from zigbpe_tpu_torch.probes import breakdown, encode, select_batch
+    from zigbpe_tpu_torch.scripts import run_config2, run_config3
+
+    km.merge_pass_multi.launches = ke.encode_rows_grouped.launches = 0
+    t0 = time.perf_counter()
+    line = bench.run("cuda", BENCH_BYTES, SCALE_VOCAB - 256, runs=1)
+    require(all(np.isfinite(line[k]) and line[k] > 0 for k in (
+        "value", "upload_s", "warmup_s", "native_baseline_mbps",
+        "encode_mbps_1kmerge_batched")), f"bench line: {line}")
+    require(line["device"] == card, f"bench names {line['device']!r}, not {card!r}")
+    log(f"[bench] ok: bench at {BENCH_BYTES} bytes, 1 run ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(line)}")
+
+    t1 = time.perf_counter()
+    line = run_config2.run("cuda", CONFIG2_BYTES, CONFIG2_MERGES)
+    require(line["conforms_to_native"], "config 2: the card's merges differ from the native "
+            "trainer's")
+    require(line["serde_roundtrip"], "config 2: merges.txt does not round-trip")
+    log(f"[bench] ok: config 2 at {CONFIG2_BYTES} bytes and {CONFIG2_MERGES} merges == native "
+        f"({time.perf_counter() - t1:.1f} s): {json.dumps(line)}")
+
+    t2 = time.perf_counter()
+    line = run_config3.run("cuda", SERVE_BYTES)
+    require((line["rows"], line["row_tokens"]) == (SERVE_BYTES // SERVE_ROW, SERVE_ROW),
+            f"config 3 rows: {line}")
+    require(line["tokens_out"] == CONFIG3_TOKENS_OUT and line["fused_passes"] == CONFIG3_PASSES,
+            f"config 3 gave {line['tokens_out']} tokens in {line['fused_passes']} passes, the "
+            f"TPU run {CONFIG3_TOKENS_OUT} in {CONFIG3_PASSES}")
+    log(f"[bench] ok: config 3 at 1 GiB: {CONFIG3_TOKENS_OUT} tokens, {CONFIG3_PASSES} passes "
+        f"as on the TPU ({time.perf_counter() - t2:.1f} s): {json.dumps(line)}")
+
+    t3 = time.perf_counter()
+    rows = breakdown.run("cuda", BENCH_BYTES, BENCH_ROUNDS, runs=2)  # raises off the native
+    log(f"[bench] ok: breakdown at {BENCH_BYTES} bytes, {BENCH_ROUNDS} rounds, full == native "
+        f"({time.perf_counter() - t3:.1f} s)")
+    t4 = time.perf_counter()
+    enc = encode.run("cuda", SERVE_BYTES, SERVE_ROW, runs=2)
+    require(enc["tokens_out"] == CONFIG3_TOKENS_OUT,
+            f"probes encode at 1 GiB gave {enc['tokens_out']} tokens, config 3 "
+            f"{CONFIG3_TOKENS_OUT}")
+    log(f"[bench] ok: probes encode at 1 GiB, group_merges table of {enc['fused_passes']} "
+        f"passes: {CONFIG3_TOKENS_OUT} tokens as config 3 ({time.perf_counter() - t4:.1f} s)")
+    t5 = time.perf_counter()
+    sb = select_batch.run("cuda", BENCH_BYTES, BENCH_SELECT_VOCAB, runs=1)  # raises on a split
+    want = native_train(tiled_corpus(BENCH_BYTES), BENCH_SELECT_VOCAB)
+    require(sb["merges"] == want, "select_batch's merges differ from the native trainer's")
+    log(f"[bench] ok: select_batch 8/16/32 at {BENCH_BYTES} bytes to vocab "
+        f"{BENCH_SELECT_VOCAB}: equal merges == native ({time.perf_counter() - t5:.1f} s); "
+        f"derived ms a round: " + ", ".join(f"{k} {v:.3f}" for k, v in rows["derived"].items()))
+    launches = {"merge": km.merge_pass_multi.launches, "encode": ke.encode_rows_grouped.launches}
+    require(all(launches.values()), f"a kernel never launched on the bench path: {launches}")
+    return launches
+
+
+def bench_main(torch, card: str) -> int:
+    """``python3 chip_smoke.py --bench``: build the merge and encode kernels
+    and the native library, and run the bench phase alone."""
+    from zigbpe_tpu_torch.ops.kernels import _build
+
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(_build.build, ("merge", "encode")))
+    require(fastio.build() and fastio.available(), "the native library did not build (g++)")
+    launches = run_phase("bench", phase_bench, torch, card)
+    log(f"[count] ok: on the bench path the merge kernel launched {launches['merge']} times, "
+        f"the encode kernel {launches['encode']}")
+    return 0
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     result = fn(*args)
@@ -2386,6 +2491,8 @@ def main() -> int:
         return split_main(torch, card)
     if sys.argv[1:2] == ["--products"]:
         return products_main(torch, card, sys.argv[2:] == ["--time-only"])
+    if sys.argv[1:] == ["--bench"]:
+        return bench_main(torch, card)
     from zigbpe_tpu_torch.ops.kernels import encode as ke, merge as km
 
     t_all = time.perf_counter()
@@ -2417,6 +2524,7 @@ def main() -> int:
     dp_ranks_launches = run_phase("dp-ranks", phase_dp_ranks, torch, card, native_32768)
     native_pool.shutdown()
     serving = run_phase("serving", phase_serving, torch, card, build_s["encode"])
+    bench_launches = run_phase("bench", phase_bench, torch, card)
     require(launches > 0, "the merge kernel never launched on the train/encode path")
     require(sorted_launches > 0, "the merge kernel never launched on the sorted training path")
     require(dp_launches > 0, "the merge kernel never launched on the data-parallel path")
@@ -2426,7 +2534,8 @@ def main() -> int:
     log(f"[count] ok: merge kernel launched {launches} times on the train/encode path and "
         f"{sorted_launches} on the sorted training path, {dp_launches} on the dp path and "
         f"{dp_ranks_launches} on the dp-ranks path (over {DP_RANKS} ranks), "
-        f"encode kernel {serving['launches']} times on the encode_batch path; on the "
+        f"encode kernel {serving['launches']} times on the encode_batch path; on the bench "
+        f"path merge {bench_launches['merge']}, encode {bench_launches['encode']}; on the "
         f"probes' path " + ", ".join(f"{n} {r['launches']}" for n, r in probes.items()))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -2438,7 +2547,8 @@ def main() -> int:
         "name": "merge_pass_multi", "route": "cuda",
         "source": "zigbpe_tpu_torch/csrc/merge.cu",
         "replaces": "zigbpe_tpu/ops/pallas/merge.py:222",
-        "launches": launches + sorted_launches + dp_launches + dp_ranks_launches,
+        "launches": (launches + sorted_launches + dp_launches + dp_ranks_launches
+                     + bench_launches["merge"]),
         "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain,
         "bound_ms": pass_bound, "bound_by": pass_by, "library_ms": None,
@@ -2446,7 +2556,7 @@ def main() -> int:
         "name": ke.encode_rows_grouped.__name__, "route": "cuda",
         "source": "zigbpe_tpu_torch/csrc/encode.cu",
         "replaces": "zigbpe_tpu/ops/pallas/encode.py:238",
-        "launches": serving["launches"],
+        "launches": serving["launches"] + bench_launches["encode"],
         "max_abs_err": max(enc_err, serving["max_abs_err"]),
         "ms": serving["ms"], "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"], "library_ms": None,

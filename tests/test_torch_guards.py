@@ -38,6 +38,10 @@ MODULES = [
     "zigbpe_tpu_torch.gui", "zigbpe_tpu_torch.gui.app", "zigbpe_tpu_torch.parallel",
     "zigbpe_tpu_torch.parallel.train_dp", "zigbpe_tpu_torch.parallel.multihost",
     "zigbpe_tpu_torch.native", "zigbpe_tpu_torch.native.fastio", "zigbpe_tpu_torch.probes.seed",
+    "zigbpe_tpu_torch.bench", "zigbpe_tpu_torch.measure", "zigbpe_tpu_torch.scripts",
+    "zigbpe_tpu_torch.scripts.run_config2",
+    "zigbpe_tpu_torch.scripts.run_config3", "zigbpe_tpu_torch.probes.breakdown",
+    "zigbpe_tpu_torch.probes.encode", "zigbpe_tpu_torch.probes.select_batch",
 ]
 
 

@@ -167,6 +167,26 @@ def test_cli_time_stats_match_the_jax_cli(flag, tmp_path, capsys):
     assert ("count_pairs", "2") in phases(port_report)
 
 
+def test_cli_train_dp_time_stats_match_the_jax_cli(tmp_path, capsys):
+    """``train --backend dp --time-stats`` prints the JAX CLI's report
+    lines (times aside): the data-parallel trainer fills no phases there."""
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(TEXT)
+    args = ["train", str(corpus), "--vocab", "300", "--backend", "dp", "--time-stats"]
+    assert j_cli.main([*args, "--out", str(tmp_path / "j.txt")]) == 0
+    jax_report = capsys.readouterr().out
+    assert cli.main([*args, "--out", str(tmp_path / "t.txt"), "--device", "cpu"]) == 0
+    port_report = capsys.readouterr().out
+    assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt").read_bytes()
+
+    def lines(report):
+        return [re.sub(r"\d+(\.\d+)?", "N", line) for line in report.splitlines()]
+
+    assert lines(port_report) == lines(jax_report)
+    assert "Time statistics:" in lines(port_report)
+    assert not any(_REPORT_LINE.match(line) for line in port_report.splitlines())
+
+
 # ---------------------------------------------------------------- train_dp
 
 UB_CASES = {"random": RANDOM, "text": TEXT, "one_byte": b"x", "empty": b""}

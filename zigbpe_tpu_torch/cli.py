@@ -84,7 +84,7 @@ def cmd_train(args) -> int:
 
         tok.merges = dp.train_dp(
             data, args.vocab, device=args.device, chunk_rounds=args.chunk_rounds,
-            verbose=args.verbose, checkpoint_dir=args.checkpoint_dir, stats=tok.time_stats,
+            verbose=args.verbose, checkpoint_dir=args.checkpoint_dir,
         )
     else:
         if backend == "device":

@@ -1,8 +1,8 @@
 """Measurement probes of the merge pass: how a pass spends its time on the
 card.
 
-    python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering|launch|seed
-        [--device cuda]
+    python -m zigbpe_tpu_torch.probes [--device cuda] [--runs 5]
+        budget|floor|pipeline|alu16|hist|lowering|launch|seed|breakdown|encode|select_batch
 
 Ports of the TPU measurement scripts, each on its own kernels:
 - ``budget`` (``scripts/probe_merge_budget.py``): the merge pass with one
@@ -27,6 +27,13 @@ Ports of the TPU measurement scripts, each on its own kernels:
   the host by the native runtime and placed, or counted on the device),
   and the native and Python whole-file reads, in turns; host work, so on
   the host clock with the device synchronised at the end of each run.
+- ``breakdown`` (``scripts/profile_breakdown.py``): a training chunk split
+  into its merge passes (``replay``), its selection (``select``, the merge
+  stubbed) and the rest;
+- ``encode`` (``scripts/probe_encode.py``): the encode kernel over the
+  corpus in rows under a ``group_merges`` table;
+- ``select_batch`` (``scripts/ab_select_batch.py``): training with the
+  verify batch at 8, 16 and 32, the merges required equal.
 
 On a CUDA device every row is timed with CUDA events: one warm-up run, then
 the median of ``runs`` runs with their range. On the CPU the probes run the

@@ -1,17 +1,18 @@
-"""python -m zigbpe_tpu_torch.probes budget|floor|pipeline|alu16|hist|lowering|launch|seed
-[--device cuda]"""
+"""python -m zigbpe_tpu_torch.probes [--device cuda] [--runs 5]
+budget|floor|pipeline|alu16|hist|lowering|launch|seed|breakdown|encode|select_batch"""
 
 from __future__ import annotations
 
 import argparse
 
-from . import alu16, budget, floor, hist, launch, lowering, pipeline, seed
+from . import (alu16, breakdown, budget, encode, floor, hist, launch, lowering, pipeline,
+               seed, select_batch)
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m zigbpe_tpu_torch.probes",
-        description="Measure how a merge pass spends its time on the card.",
+        description="Measure the port's layers on the card: merge pass, seeds, training, encode.",
     )
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) runs the kernels; cpu runs their plain twins")
@@ -34,6 +35,15 @@ def main(argv=None) -> int:
     se = sub.add_parser("seed", help="the host and device seeds of the table, and file reads")
     se.add_argument("--mb", type=int, default=32, help="corpus size in MiB")
     se.add_argument("--vocab", type=int, default=512, help="the seeded table's vocab size")
+    br = sub.add_parser("breakdown", help="a training round split into selection, merge and rest")
+    br.add_argument("--mb", type=int, default=32, help="corpus size in MiB")
+    br.add_argument("--rounds", type=int, default=64, help="rounds of each variant")
+    en = sub.add_parser("encode", help="the encode kernel over the corpus in rows")
+    en.add_argument("--mb", type=int, default=32, help="corpus size in MiB")
+    en.add_argument("--row", type=int, default=32768, help="tokens a row")
+    sb = sub.add_parser("select_batch", help="training with verify batches 8, 16 and 32")
+    sb.add_argument("--mb", type=int, default=8, help="corpus size in MiB")
+    sb.add_argument("--vocab", type=int, default=1280, help="the trained vocab size")
     args = parser.parse_args(argv)
     if args.probe == "budget":
         budget.run(args.device, nbytes=args.mb << 20, np_passes=args.np_passes, runs=args.runs)
@@ -49,6 +59,12 @@ def main(argv=None) -> int:
         lowering.run(args.device)
     elif args.probe == "seed":
         seed.run(args.device, nbytes=args.mb << 20, vocab=args.vocab, runs=args.runs)
+    elif args.probe == "breakdown":
+        breakdown.run(args.device, nbytes=args.mb << 20, rounds=args.rounds, runs=args.runs)
+    elif args.probe == "encode":
+        encode.run(args.device, nbytes=args.mb << 20, row=args.row, runs=args.runs)
+    elif args.probe == "select_batch":
+        select_batch.run(args.device, nbytes=args.mb << 20, vocab=args.vocab, runs=args.runs)
     else:
         launch.run(args.device, calls=args.calls)
     return 0

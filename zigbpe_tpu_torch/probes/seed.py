@@ -24,27 +24,18 @@ also split into its count on the host and its placement.
 from __future__ import annotations
 
 import tempfile
-import time
 from pathlib import Path
 
 import torch
 
 from .. import train
+from ..measure import host_ms
 from ..native import fastio
 from ..ops import core
 from ..ops.core import resolve_device
 from ..utils import fileio
 from . import device_line, spread
 from .budget import tiled_corpus
-
-
-def _timed(fn, device: torch.device):
-    """(result, ms) of ``fn()``, the device synchronised before the clock stops."""
-    t0 = time.perf_counter()
-    out = fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return out, (time.perf_counter() - t0) * 1e3
 
 
 def in_turns(fns: dict, device: torch.device, runs: int) -> dict:
@@ -54,7 +45,7 @@ def in_turns(fns: dict, device: torch.device, runs: int) -> dict:
     times = {name: [] for name in names}
     for r in range(runs + 1):
         for name in names if r % 2 else reversed(names):
-            ms = _timed(fns[name], device)[1]
+            ms = host_ms(fns[name], device)[1]
             if r:
                 times[name].append(ms)
     return times
@@ -93,9 +84,9 @@ def run(device="cuda", nbytes: int = 32 << 20, vocab: int = 512, runs: int = 5) 
     count_ms, place_ms = [], []
 
     def host_seed():
-        hist, ms = _timed(lambda: fastio.byte_pair_hist(data), torch.device("cpu"))
+        hist, ms = host_ms(lambda: fastio.byte_pair_hist(data), torch.device("cpu"))
         count_ms.append(ms)
-        ub, ms = _timed(lambda: train._place_byte_hist(torch.from_numpy(hist).to(dev), vocab),
+        ub, ms = host_ms(lambda: train._place_byte_hist(torch.from_numpy(hist).to(dev), vocab),
                         dev)
         place_ms.append(ms)
         return ub
