@@ -1,0 +1,13 @@
+"""Trainer loop: the device's idle time while the host was inside the
+program's ``train.upkeep`` span (the upper-bound table's update after each
+merge), in ms a merge of the traced chunks. None where the traced slices
+saw no device work, or the program records no such span."""
+
+SPAN = "train.upkeep"
+
+
+def read(run):
+    t = run.trace
+    if t is None or not t.busy_s or SPAN not in t.idle_s or not run.traced_merges:
+        return None
+    return t.idle_s[SPAN] / run.traced_merges * 1e3

@@ -134,7 +134,12 @@ class BasicTokenizer:
         Rows of 1024 to 32768 tokens (a multiple of 128) replay the
         scheduled merge table in one launch of the encode kernel; other row
         lengths take the plain per-merge batch replay. The choice is by
-        shape only."""
+        shape only.
+
+        Each call records the spans ``encode.pad``, ``encode.schedule``,
+        ``encode.kernel``, ``encode.copy`` and ``encode.lists``, and counts
+        its rows under ``encode_rows.kernel`` or ``encode_rows.plain``, in
+        ``self.time_stats``."""
         if not docs:
             return []
         docs = [d.encode("utf-8") if isinstance(d, str) else bytes(d) for d in docs]
@@ -148,17 +153,29 @@ class BasicTokenizer:
             L = _encode_capacity(max((len(d) for d in docs), default=1))
             if kenc.encode_kernel_supported(max(L, 1024)):
                 L = max(L, 1024)
-        tokens, _ = eb.pad_batch(docs, L, self.device)
-        if kenc.encode_kernel_supported(L):
-            if self._grouped_merges is None:
-                gt, gl = kenc.schedule_merges(np.asarray(self.merges, np.int32), cap=32)
-                self._grouped_merges = (torch.from_numpy(gt).to(self.device),
-                                        torch.from_numpy(gl).to(self.device))
-            out, lengths = kenc.encode_rows_grouped(tokens, *self._grouped_merges)
-        else:
-            out, lengths = eb.encode_batch(tokens, self._merges_tensor())
-        out = out.cpu()
-        return [out[i, :n].tolist() for i, n in enumerate(lengths.tolist())]
+        ts = self.time_stats
+        with ts.span("encode.pad"):
+            tokens, _ = eb.pad_batch(docs, L, self.device)
+        grouped = kenc.encode_kernel_supported(L)
+        ts.count("encode_rows.kernel" if grouped else "encode_rows.plain", len(docs))
+        with ts.span("encode.schedule"):
+            table = self._grouped_tables() if grouped else self._merges_tensor()
+        with ts.span("encode.kernel"):
+            if grouped:
+                out, lengths = kenc.encode_rows_grouped(tokens, *table)
+            else:
+                out, lengths = eb.encode_batch(tokens, table)
+        with ts.span("encode.copy"):
+            out = out.cpu()
+        with ts.span("encode.lists"):
+            return [out[i, :n].tolist() for i, n in enumerate(lengths.tolist())]
+
+    def _grouped_tables(self):
+        if self._grouped_merges is None:
+            gt, gl = kenc.schedule_merges(np.asarray(self.merges, np.int32), cap=32)
+            self._grouped_merges = (torch.from_numpy(gt).to(self.device),
+                                    torch.from_numpy(gl).to(self.device))
+        return self._grouped_merges
 
     def _merges_tensor(self) -> torch.Tensor:
         if self._device_merges is None:

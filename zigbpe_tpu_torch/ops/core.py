@@ -18,6 +18,12 @@ is ``LAYOUT`` wherever a stream may have been through a merge pass.
 * Loops the JAX package runs as ``lax.while_loop``/``lax.cond`` are Python
   control flow here, with one host sync per verify iteration and per merge
   group (two per round on the sorted path).
+* The chunk loops record three sibling spans a round into the ``stats``
+  they are given (``utils/profiling.TimeStats``): ``train.select``,
+  ``train.upkeep`` (lazy path only) and ``train.merge``; and the counters
+  ``verify_passes`` (exact-count passes over the stream), ``merge_passes``,
+  ``merges`` and ``merge_tokens`` (the stream capacity each merge pass
+  reads, summed).
 
 Where the JAX code donates a buffer, the port updates it in place; each
 function says so.
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import TimeStats
 from .kernels import LAYOUT
 from .kernels import merge as kmerge
 
@@ -332,7 +339,8 @@ def update_ub_after_merge(ub: torch.Tensor, rowmax: torch.Tensor, ta: int, tb: i
 def train_chunk_lazy(tokens: torch.Tensor, length: int, ub: torch.Tensor,
                      merges: torch.Tensor, occupancy: torch.Tensor,
                      num_merges: int, vocab_size: int, max_rounds: int,
-                     select_batch: int = 8, merge_group: int = 1):
+                     select_batch: int = 8, merge_group: int = 1,
+                     stats: TimeStats | None = None):
     """Run up to ``max_rounds`` merge rounds (or to the target vocab, early
     stop, or a drained row) on a stream in row-local layout, with lazy
     upper-bound selection and one fused merge pass per group of up to
@@ -352,6 +360,7 @@ def train_chunk_lazy(tokens: torch.Tensor, length: int, ub: torch.Tensor,
     Python ints for length, k and needs_compact (1 when a row drained to
     <= 1 token and the caller must recompact the stream).
     """
+    stats = stats or TimeStats.null()
     V = vocab_size
     M = merges.shape[0]
     GK = merge_group
@@ -372,21 +381,24 @@ def train_chunk_lazy(tokens: torch.Tensor, length: int, ub: torch.Tensor,
     k, L, flag = num_merges, length, 0
     while k < target and L >= 2 and flag == 0:
         X0 = VOCAB_START + k
-        count_fn = packed_count_fn(tokens, V, lb) if chained_ext else None
         vpa = vpb = ()
-        # hot = the previous round's last new token (its bounds are fresh)
-        if GK > 1:
-            ta, tb, cnt, ub, rowmax, vpa, vpb = select_top_pair_lazy(
-                ub, tokens, V, batch=select_batch, layout_block=lb,
-                rowmax=rowmax, hot=X0 - 1, count_fn=count_fn,
-                return_verified=True, col_k=3,
-            )
-        else:
-            ta, tb, cnt, ub, rowmax = select_top_pair_lazy(
-                ub, tokens, V, batch=select_batch, layout_block=lb,
-                rowmax=rowmax, hot=X0 - 1,
-            )
-        update_ub_after_merge(ub, rowmax, ta, tb, X0, cnt, V)
+        with stats.span("train.select"):
+            # every verify pass of the round counts the PRE-group stream
+            count_fn = _counted(packed_count_fn(tokens, V, lb), stats)
+            # hot = the previous round's last new token (its bounds are fresh)
+            if GK > 1:
+                ta, tb, cnt, ub, rowmax, vpa, vpb = select_top_pair_lazy(
+                    ub, tokens, V, batch=select_batch, layout_block=lb,
+                    rowmax=rowmax, hot=X0 - 1, count_fn=count_fn,
+                    return_verified=True, col_k=3,
+                )
+            else:
+                ta, tb, cnt, ub, rowmax = select_top_pair_lazy(
+                    ub, tokens, V, batch=select_batch, layout_block=lb,
+                    rowmax=rowmax, hot=X0 - 1, count_fn=count_fn,
+                )
+        with stats.span("train.upkeep"):
+            update_ub_after_merge(ub, rowmax, ta, tb, X0, cnt, V)
         ok = cnt > 0
         rows = [(ta, tb, X0) if ok else (-2, -2, -2)]
         cnts = [cnt]
@@ -396,27 +408,30 @@ def train_chunk_lazy(tokens: torch.Tensor, length: int, ub: torch.Tensor,
                 rows.append((-2, -2, -2))
                 continue
             Xm = X0 + m
-            c_m, ta_m, tb_m = torch.stack(_table_argmax(ub.view(V, V), rowmax, iota)).tolist()
-            in_verified = tb_m >= 0 and any(
-                pa == ta_m and pb == tb_m for pa, pb in zip(vpa, vpb)
-            )
-            if chained_ext and not in_verified:
-                # re-select against the PRE-group stream; bins that reference
-                # minted tokens keep their bounds (protect_from)
-                ta_m, tb_m, c_m, ub, rowmax, vpa, vpb = select_top_pair_lazy(
-                    ub, tokens, V, batch=select_batch, layout_block=lb,
-                    rowmax=rowmax, count_fn=count_fn, protect_from=X0,
-                    return_verified=True,
+            with stats.span("train.select"):
+                c_m, ta_m, tb_m = torch.stack(
+                    _table_argmax(ub.view(V, V), rowmax, iota)).tolist()
+                in_verified = tb_m >= 0 and any(
+                    pa == ta_m and pb == tb_m for pa, pb in zip(vpa, vpb)
                 )
-                in_verified = True
-            ok = (
-                in_verified and c_m > 0 and tb_m >= 0 and k + m < target
-                and ta_m != tb_m and ta_m < X0 and tb_m < X0
-                and all((fa, fb) != (ta_m, tb_m) and fb != ta_m and fa != tb_m
-                        for fa, fb in members)
-            )
+                if chained_ext and not in_verified:
+                    # re-select against the PRE-group stream; bins that reference
+                    # minted tokens keep their bounds (protect_from)
+                    ta_m, tb_m, c_m, ub, rowmax, vpa, vpb = select_top_pair_lazy(
+                        ub, tokens, V, batch=select_batch, layout_block=lb,
+                        rowmax=rowmax, count_fn=count_fn, protect_from=X0,
+                        return_verified=True,
+                    )
+                    in_verified = True
+                ok = (
+                    in_verified and c_m > 0 and tb_m >= 0 and k + m < target
+                    and ta_m != tb_m and ta_m < X0 and tb_m < X0
+                    and all((fa, fb) != (ta_m, tb_m) and fb != ta_m and fa != tb_m
+                            for fa, fb in members)
+                )
             if ok:
-                update_ub_after_merge(ub, rowmax, ta_m, tb_m, Xm, c_m, V)
+                with stats.span("train.upkeep"):
+                    update_ub_after_merge(ub, rowmax, ta_m, tb_m, Xm, c_m, V)
                 rows.append((ta_m, tb_m, Xm))
                 cnts.append(c_m)
                 members.append((ta_m, tb_m))
@@ -426,21 +441,37 @@ def train_chunk_lazy(tokens: torch.Tensor, length: int, ub: torch.Tensor,
         g = len(members)
         if g == 0:
             break  # no pair left in the stream
-        table = torch.tensor(rows, dtype=torch.int32, device=dev)
-        tokens, stats = kmerge.merge_pass_multi(tokens, table)
-        st = stats.tolist()
-        L = st[GK]
-        flag = int(st[GK + 1] <= 1)
-        merges[k: k + g] = table[:g]
-        occupancy[k: k + g] = torch.tensor(cnts[:g], dtype=torch.int32, device=dev)
+        with stats.span("train.merge"):
+            table = torch.tensor(rows, dtype=torch.int32, device=dev)
+            _count_merge_pass(stats, tokens, g)
+            tokens, pass_stats = kmerge.merge_pass_multi(tokens, table)
+            st = pass_stats.tolist()
+            L = st[GK]
+            flag = int(st[GK + 1] <= 1)
+            merges[k: k + g] = table[:g]
+            occupancy[k: k + g] = torch.tensor(cnts[:g], dtype=torch.int32, device=dev)
         k += g
     return tokens, L, ub, merges, occupancy, k, flag
+
+
+def _counted(count_fn, stats: TimeStats):
+    """``count_fn`` that adds each call to the ``verify_passes`` counter."""
+    def counted(pa, pb):
+        stats.count("verify_passes")
+        return count_fn(pa, pb)
+    return counted
+
+
+def _count_merge_pass(stats: TimeStats, tokens: torch.Tensor, merges: int) -> None:
+    stats.count("merge_passes")
+    stats.count("merges", merges)
+    stats.count("merge_tokens", tokens.shape[0])
 
 
 
 def train_chunk(tokens: torch.Tensor, length: int, merges: torch.Tensor,
                 occupancy: torch.Tensor, num_merges: int, vocab_size: int,
-                max_rounds: int):
+                max_rounds: int, stats: TimeStats | None = None):
     """Run up to ``max_rounds`` merge rounds (or to the target vocab, early
     stop, or a drained row) with sort-based selection, on a stream in
     row-local layout: each round is one ``select_top_pair_sorted`` and one
@@ -454,16 +485,20 @@ def train_chunk(tokens: torch.Tensor, length: int, merges: torch.Tensor,
     needs_compact) with Python ints for length, k and needs_compact (1 when
     a row drained to <= 1 token and the caller must recompact the stream).
     """
+    stats = stats or TimeStats.null()
     target = min(num_merges + max_rounds, merges.shape[0])
     k, L, flag = num_merges, length, 0
     while k < target and L >= 2 and flag == 0:
-        ta, tb, cnt = select_top_pair_sorted(tokens, vocab_size, layout_block=LAYOUT)
-        new_id = torch.full_like(ta, VOCAB_START + k)
-        table = torch.stack([ta, tb, new_id]).to(torch.int32).view(1, 3)
-        tokens, stats = kmerge.merge_pass_multi(tokens, table)
-        _, L, min_kept = stats.tolist()
-        merges[k] = table[0]
-        occupancy[k] = cnt
+        with stats.span("train.select"):
+            ta, tb, cnt = select_top_pair_sorted(tokens, vocab_size, layout_block=LAYOUT)
+        with stats.span("train.merge"):
+            new_id = torch.full_like(ta, VOCAB_START + k)
+            table = torch.stack([ta, tb, new_id]).to(torch.int32).view(1, 3)
+            _count_merge_pass(stats, tokens, 1)
+            tokens, pass_stats = kmerge.merge_pass_multi(tokens, table)
+            _, L, min_kept = pass_stats.tolist()
+            merges[k] = table[0]
+            occupancy[k] = cnt
         flag = int(min_kept <= 1)
         k += 1
     return tokens, L, merges, occupancy, k, flag

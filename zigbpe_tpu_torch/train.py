@@ -226,7 +226,7 @@ def train_device(
             if not lazy:
                 tokens, length, merges, occupancy, k, needs_compact = core.train_chunk(
                     tokens, length, merges, occupancy, k, vocab_size=vocab_size,
-                    max_rounds=rounds,
+                    max_rounds=rounds, stats=stats,
                 )
             else:
                 if select_batch is None:
@@ -239,6 +239,7 @@ def train_device(
                 tokens, length, ub, merges, occupancy, k, needs_compact = core.train_chunk_lazy(
                     tokens, length, ub, merges, occupancy, k, vocab_size=vocab_size,
                     max_rounds=rounds, select_batch=sb_chunk, merge_group=merge_group,
+                    stats=stats,
                 )
 
         if verbose:
