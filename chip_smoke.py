@@ -26,6 +26,16 @@ Phases, each of which must pass:
    timing  — the K = 4, K = 1 a == b and K = 1 a != b passes at 2^25 tokens
              in turns with the kernel's copy variant and clone, and the twin,
              with CUDA events;
+   verify  — the verify pass's count (count_queries, csrc/count.cu) against
+             its twin on the card: the corpus's pair ids at 2^24 and 2^23
+             slots under their 105 commonest pairs (int32 and int64
+             queries, and with one pair in 30% of the slots), seeded ragged
+             lengths up to 8192 queries, an all-PAD stream, and its geometry
+             against the Python plan; timed at both lengths in turns with
+             the twin and by device time (a CUDA graph), beside one read of
+             the stream; then 1 MiB trained to vocab 400 on the card through
+             it (its launches equal the verify passes) and on the CPU, with
+             equal merges;
 3. probes  — the measurement probes' kernels against their twins (run on
              the card): copy_blocks, copy_carry and copy_peek for int32 and
              int16 at R = 8 and every block size of the floor probe, at 2^25
@@ -187,6 +197,11 @@ and the pass split of phase 8 on the first 1024 serving rows, and stops.
 builds the merge and encode kernels and the native library, runs phase 9
 alone, and stops.
 
+    python3 chip_smoke.py --count
+
+builds the count kernel, prints its ptxas lines, runs the verify phase
+alone, and stops.
+
     python3 chip_smoke.py --products [--time-only]
 
 builds the lowering kernels, prints their ptxas lines, holds onehot_dot,
@@ -260,7 +275,14 @@ CONFIG2_MERGES = 512           # ... and 1024 merges
 # the TPU: these depend only on the bytes
 CONFIG3_TOKENS_OUT = 307_958_775
 CONFIG3_PASSES = 47
-KERNELS = ("merge", "encode", "copy", "opmix", "hist", "lowering")
+KERNELS = ("merge", "encode", "copy", "opmix", "hist", "lowering", "count")
+# the verify pass of lazy selection on the 1K trainer's streams: 16 and 8 MiB
+# of bytes, vocab 1280, 105 queries a pass (select_batch 32)
+COUNT_STREAMS = (1 << 24, 1 << 23)
+COUNT_VOCAB = 1280
+COUNT_QUERIES = 105
+COUNT_TRAIN_BYTES = 1 << 20  # trained to COUNT_TRAIN_VOCAB on the card and on the CPU
+COUNT_TRAIN_VOCAB = 400
 
 
 class PhaseError(RuntimeError):
@@ -534,6 +556,112 @@ def phase_timing(torch, group, card):
             f"{plain:.4f} ms (CUDA events, mean); {card}")
         out[label] = (ms, plain)
     return out
+
+
+def count_case(torch, n: int):
+    """The trainer's first verify pass on ``n`` bytes of the tiled corpus:
+    its packed pair-id stream at COUNT_VOCAB and, as queries, the
+    COUNT_QUERIES commonest pairs (the bounds lazy selection pops first)."""
+    from zigbpe_tpu_torch.ops import core
+
+    tokens = torch.from_numpy(padded(tiled_corpus(n), n)).cuda()
+    a, b = core.pair_streams(tokens, 128)
+    pids = torch.where(b >= 0, a * COUNT_VOCAB + b, -1)
+    held, counts = torch.unique(pids[pids >= 0], return_counts=True)
+    return pids, held[counts.argsort(descending=True)[:COUNT_QUERIES]].long()
+
+
+def check_count(torch, card: str) -> dict:
+    """count_queries against its twin (run on the card): on the corpus's
+    pair ids at COUNT_STREAMS, with one pair in 30% of the slots, on an
+    all-PAD stream, at ragged lengths and up to MAX_QUERIES queries, int32
+    and int64; the C geometry against count_plan. Then timed at
+    COUNT_STREAMS with COUNT_QUERIES queries in turns with the twin (kernel,
+    twin, twin, kernel; CUDA events, per call) and by device time (a CUDA
+    graph), beside its bound: one read of the stream. Returns the kernels
+    line's row at 2^24."""
+    from zigbpe_tpu_torch.ops.kernels import count as kc
+
+    def same(pids, q, what):
+        got, want = kc.count_queries(pids, q), kc.count_queries_reference(pids, q)
+        require(torch.equal(got, want), f"count_queries != twin: {what}, max_abs_err "
+                f"{int((got - want).abs().max())}")
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    for n in COUNT_STREAMS:
+        pids, q = count_case(torch, n)
+        same(pids, q, f"corpus n={n}")
+        same(pids, q.int(), f"corpus n={n}, int32 queries")
+        hot = torch.where(torch.rand(n, generator=g, device="cuda") < 0.3, q[0].int(), pids)
+        same(hot, q, f"30% one pair n={n}")
+    # the twin holds a Q x min(n, 2^20) comparison and its int64 cast: wide
+    # query sets only on short streams
+    cases = [(n, nq) for n in (0, 1, 3, 1000, 4096 * 4 + 7) for nq in (1, 105, 4096,
+                                                                        kc.MAX_QUERIES)]
+    for n, nq in cases + [((1 << 23) + 3, 1), ((1 << 23) + 3, 105)]:
+        pids = torch.randint(-1, 5 * nq, (n,), generator=g, device="cuda", dtype=torch.int32)
+        q = torch.randint(0, 6 * nq, (nq,), generator=g, device="cuda")
+        same(pids, q, f"seeded n={n} nq={nq}")
+    same(torch.full((1 << 22,), -1, dtype=torch.int32, device="cuda"),
+         torch.arange(COUNT_QUERIES, device="cuda"), "all PAD")
+    for n, nq in ((1 << 24, 105), (1 << 23, 57), (3, 1), (0, 5), (4096, 8192), (1 << 20, 512)):
+        got = kc.device_plan(n, nq)
+        require(got == kc.count_plan(n, nq, got.sms, got.blocks_per_sm),
+                f"count geometry {got} != plan at n={n} nq={nq}")
+    log(f"  count_queries == twin: the corpus's pairs at {COUNT_STREAMS} (int32 and int64 "
+        f"queries, and 30% one pair), seeded ragged lengths up to {kc.MAX_QUERIES} queries, all "
+        f"PAD; C geometry == Python plan ({got.sms} SMs)")
+    row = None
+    for n in COUNT_STREAMS:
+        pids, q = count_case(torch, n)
+        ks, ts = in_turns(lambda: kc.count_queries(pids, q),
+                          lambda: kc.count_queries_reference(pids, q), pids.device)
+        dev_ms = graph_ms(torch, lambda: kc.count_queries(pids, q))
+        ms, plain = statistics.fmean(ks), statistics.fmean(ts)
+        bound, by = bound_ms(4 * n)
+        plan = kc.device_plan(n, COUNT_QUERIES)
+        log(f"[verify] count_queries at n = {n}, {COUNT_QUERIES} queries (the corpus's commonest "
+            f"pairs at vocab {COUNT_VOCAB}): kernel {ms:.4f} ms ({ks[0]:.4f}, {ks[1]:.4f}), "
+            f"device (CUDA graph of 20) {dev_ms:.5f} ms, plain PyTorch twin {plain:.4f} ms "
+            f"({ts[0]:.4f}, {ts[1]:.4f}); bound {bound:.4f} ms ({by}), device share of bound "
+            f"{bound / dev_ms:.3f}; grid {plan.grid} x {kc.THREADS}, table 2^{plan.bits}, "
+            f"{plan.copies} copies of each count; {card}")
+        if row is None:
+            row = {"max_abs_err": 0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                   "bound_ms": bound, "bound_by": by, "library_ms": None}
+    return row
+
+
+def train_counted(torch) -> int:
+    """COUNT_TRAIN_BYTES of the tiled corpus to COUNT_TRAIN_VOCAB on the card,
+    whose merges must be the CPU's; returns the count kernel's launches."""
+    from zigbpe_tpu_torch import BasicTokenizer
+    from zigbpe_tpu_torch.ops.kernels import count as kc
+
+    text = tiled_corpus(COUNT_TRAIN_BYTES)
+    kc.count_queries.launches = 0
+    tok = BasicTokenizer(device="cuda").train(text, COUNT_TRAIN_VOCAB)
+    launches = kc.count_queries.launches
+    require(launches > 0, "the count kernel never launched in training")
+    require(tok.time_stats.counters["verify_passes"] == launches,
+            f"{launches} count launches for {tok.time_stats.counters['verify_passes']} passes")
+    require(tok.merges == BasicTokenizer(device="cpu").train(text, COUNT_TRAIN_VOCAB).merges,
+            "training on the card learned other merges than on the CPU")
+    log(f"[verify] ok: {COUNT_TRAIN_BYTES} bytes to vocab {COUNT_TRAIN_VOCAB}: the CPU's merges, "
+        f"{launches} count launches ({tok.time_stats.counters['verify_queries']} queries)")
+    return launches
+
+
+def count_main(torch, card: str) -> int:
+    """``python3 chip_smoke.py --count``: build the count kernel, print its
+    ptxas lines, check and time it, and train once through it."""
+    from zigbpe_tpu_torch.ops.kernels import _build
+
+    log_ptxas("count", _build.build("count"))
+    row = run_phase("verify", check_count, torch, card)
+    launches = train_counted(torch)
+    print(json.dumps({"count_queries": {"launches": launches, **row}, "card": card}))
+    return 0
 
 
 COPY_KERNELS = ("copy_blocks", "copy_carry", "copy_peek")
@@ -2493,6 +2621,8 @@ def main() -> int:
         return products_main(torch, card, sys.argv[2:] == ["--time-only"])
     if sys.argv[1:] == ["--bench"]:
         return bench_main(torch, card)
+    if sys.argv[1:] == ["--count"]:
+        return count_main(torch, card)
     from zigbpe_tpu_torch.ops.kernels import encode as ke, merge as km
 
     t_all = time.perf_counter()
@@ -2509,6 +2639,8 @@ def main() -> int:
     log(f"  real groups from the golden training: {group} then {group2}")
     max_err = run_phase("kernel", phase_kernel, torch, group, group2)
     timing = run_phase("timing", phase_timing, torch, group, card)
+    count = run_phase("verify", check_count, torch, card)
+    count["launches"] = train_counted(torch)
     probes = run_phase("probes", phase_probes, torch, group, card)
     enc_err = run_phase("encode-kernel", phase_encode_kernel, torch)
 
@@ -2560,6 +2692,9 @@ def main() -> int:
         "max_abs_err": max(enc_err, serving["max_abs_err"]),
         "ms": serving["ms"], "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"], "library_ms": None,
+    }, {
+        "name": "count_queries", "route": "cuda", "source": "zigbpe_tpu_torch/csrc/count.cu",
+        "replaces": None, **count,
     }]
     for name, source, replaces in PROBE_SOURCES:
         kernels.append({"name": name, "route": "cuda", "source": source,

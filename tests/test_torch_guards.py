@@ -13,6 +13,7 @@ import torch
 from zigbpe_tpu_torch import BasicTokenizer, train
 from zigbpe_tpu_torch.ops import core
 from zigbpe_tpu_torch.ops.kernels import copy as kcopy
+from zigbpe_tpu_torch.ops.kernels import count as kcount
 from zigbpe_tpu_torch.ops.kernels import encode as kencode
 from zigbpe_tpu_torch.ops.kernels import hist as khist
 from zigbpe_tpu_torch.ops.kernels import lowering as klow
@@ -42,6 +43,7 @@ MODULES = [
     "zigbpe_tpu_torch.scripts.run_config2",
     "zigbpe_tpu_torch.scripts.run_config3", "zigbpe_tpu_torch.probes.breakdown",
     "zigbpe_tpu_torch.probes.encode", "zigbpe_tpu_torch.probes.select_batch",
+    "zigbpe_tpu_torch.ops.kernels.count",
 ]
 
 
@@ -91,7 +93,7 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
            "PYTHONPATH": str(REPO)}
     code = (
         "from zigbpe_tpu_torch.ops.kernels import _build, copy, encode, merge\n"
-        "from zigbpe_tpu_torch.ops.kernels import hist, lowering, opmix\n"
+        "from zigbpe_tpu_torch.ops.kernels import count, hist, lowering, opmix\n"
         "import zigbpe_tpu_torch.probes.__main__\n"
         "assert _build._libs == {}\n"
         "try:\n"
@@ -368,8 +370,8 @@ import ctypes  # noqa: E402
 
 from zigbpe_tpu_torch.ops.kernels import _build  # noqa: E402
 
-ENTRY_MODULES = {"copy": kcopy, "encode": kencode, "hist": khist, "merge": kmerge,
-                 "opmix": kopmix}
+ENTRY_MODULES = {"copy": kcopy, "count": kcount, "encode": kencode, "hist": khist,
+                 "merge": kmerge, "opmix": kopmix}
 CTYPES = {"long long": ctypes.c_longlong, "int": ctypes.c_int}
 
 
@@ -417,7 +419,7 @@ def _meta(shape, dtype=torch.int32):
 
 
 def _wrapper_calls(device):
-    """(name, wrapper, call) of every wrapper of the five modules, on
+    """(name, wrapper, call) of every wrapper of the six modules, on
     inputs on ``device`` at small shapes."""
     t = lambda shape, dtype=torch.int32: torch.zeros(shape, dtype=dtype, device=device)  # noqa
     table = torch.tensor([[97, 98, 256]], dtype=torch.int32, device=device)
@@ -435,11 +437,13 @@ def _wrapper_calls(device):
          lambda: kmerge.merge_pass_ablated(t((256,)), table, "nokills")),
         ("encode_rows_grouped", kencode.encode_rows_grouped,
          lambda: kencode.encode_rows_grouped(t((2, 1024)), gt.to(device), gl.to(device))),
+        ("count_queries", kcount.count_queries,
+         lambda: kcount.count_queries(t((4097,)), t((105,), torch.int64))),
     ]
 
 
 def _stub_entries(monkeypatch) -> _Recorder:
-    """Every Entry of the five modules records its calls instead of
+    """Every Entry of the six modules records its calls instead of
     launching; the current device is -1, a CPU tensor's get_device()."""
     rec = _Recorder()
     for module in ENTRY_MODULES.values():
@@ -451,7 +455,7 @@ def _stub_entries(monkeypatch) -> _Recorder:
     return rec
 
 
-@pytest.mark.parametrize("index", range(8))
+@pytest.mark.parametrize("index", range(9))
 def test_a_meta_tensor_raises_before_any_launch(monkeypatch, index):
     rec = _stub_entries(monkeypatch)
     name, wrapper, call = _wrapper_calls("meta")[index]
@@ -461,7 +465,7 @@ def test_a_meta_tensor_raises_before_any_launch(monkeypatch, index):
     assert wrapper.launches == before and rec.calls == [], name
 
 
-@pytest.mark.parametrize("index", range(8))
+@pytest.mark.parametrize("index", range(9))
 def test_wrappers_pass_the_argument_types_their_c_entry_declares(monkeypatch, index):
     """With the launch stubbed and a CPU tensor taken for a card's, each
     wrapper makes one launch whose arguments ctypes converts to what the C

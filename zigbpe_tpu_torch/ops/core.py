@@ -21,9 +21,10 @@ is ``LAYOUT`` wherever a stream may have been through a merge pass.
 * The chunk loops record three sibling spans a round into the ``stats``
   they are given (``utils/profiling.TimeStats``): ``train.select``,
   ``train.upkeep`` (lazy path only) and ``train.merge``; and the counters
-  ``verify_passes`` (exact-count passes over the stream), ``merge_passes``,
-  ``merges`` and ``merge_tokens`` (the stream capacity each merge pass
-  reads, summed).
+  ``verify_passes`` (exact-count passes over the stream),
+  ``verify_queries`` (the pairs those passes count, summed),
+  ``merge_passes``, ``merges`` and ``merge_tokens`` (the stream capacity
+  each merge pass reads, summed).
 
 Where the JAX code donates a buffer, the port updates it in place; each
 function says so.
@@ -35,11 +36,11 @@ import torch
 
 from ..utils.profiling import TimeStats
 from .kernels import LAYOUT
+from .kernels import count as kcount
 from .kernels import merge as kmerge
 
 PAD = -1
 VOCAB_START = 256
-_COUNT_CHUNK = 1 << 20
 
 
 def resolve_device(device) -> torch.device:
@@ -185,14 +186,10 @@ def rowmax_of(ub: torch.Tensor, vocab_size: int) -> torch.Tensor:
 
 
 def count_queries(stream: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """int32 counts of each query value in ``stream``: one pass over the
-    stream, in chunks so the comparison matrix stays small. The queries
-    take the stream's dtype, so the stream is never widened."""
-    out = torch.zeros(queries.shape[0], dtype=torch.int64, device=stream.device)
-    queries = queries.to(stream.dtype)
-    for chunk in stream.split(_COUNT_CHUNK):
-        out += (chunk[None, :] == queries[:, None]).sum(1)
-    return out.to(torch.int32)
+    """int32 counts of each query value (>= 0) in the int32 ``stream``:
+    ``ops/kernels/count.py``, the kernel on a card (one read of the stream)
+    and its chunked twin on the CPU."""
+    return kcount.count_queries(stream, queries)
 
 
 def packed_count_fn(tokens: torch.Tensor, vocab_size: int,
@@ -215,7 +212,7 @@ def stream_count_fn(sa: torch.Tensor, sb: torch.Tensor, vocab_size: int):
     else:
         def count_fn(pa, pb):
             out = torch.zeros(pa.shape[0], dtype=torch.int64, device=sa.device)
-            for ca, cb in zip(sa.split(_COUNT_CHUNK), sb.split(_COUNT_CHUNK)):
+            for ca, cb in zip(sa.split(kcount.CHUNK), sb.split(kcount.CHUNK)):
                 out += ((ca[None] == pa[:, None]) & (cb[None] == pb[:, None])
                         & (cb[None] >= 0)).sum(1)
             return out.to(torch.int32)
@@ -455,9 +452,11 @@ def train_chunk_lazy(tokens: torch.Tensor, length: int, ub: torch.Tensor,
 
 
 def _counted(count_fn, stats: TimeStats):
-    """``count_fn`` that adds each call to the ``verify_passes`` counter."""
+    """``count_fn`` that adds each call to the ``verify_passes`` counter and
+    its queries to ``verify_queries``."""
     def counted(pa, pb):
         stats.count("verify_passes")
+        stats.count("verify_queries", pa.shape[0])
         return count_fn(pa, pb)
     return counted
 
