@@ -15,6 +15,11 @@ compares what the window produced with the plain reference.
   calls made from the seed, with one frozen table. In a traced run
   the first ``trace_calls`` calls are one profiled slice.
 
+Each job keeps a copy of its tokenizer's counters (``time_stats.counters``)
+once it has ended, and each call what it added to them, whatever names the
+program records. Both are read outside the timed interval of the job or
+call.
+
 The program is ``BasicTokenizer`` unless the context puts another class
 with its interface in its place, as the controls do.
 """
@@ -77,7 +82,8 @@ class SlicedPhases:
     the ``first`` and every ``every``-th after it. ``merges`` counts the
     ``merge i/M`` lines given to ``printed`` between the end of a profiled
     call and the start of the next call of the phase: the merges that the
-    profiled chunks made, as the trainer's ``verbose`` prints them."""
+    profiled chunks made, as the trainer's ``verbose`` prints them. Every
+    other attribute, the counters included, is the inner TimeStats'."""
 
     def __init__(self, inner, tracer, phase: str, every: int, first: int):
         self._inner, self._tracer = inner, tracer
@@ -124,6 +130,11 @@ class Lines(io.TextIOBase):
         return len(text)
 
 
+def counters(tok) -> dict:
+    """A copy of the program's counters, empty where it keeps none."""
+    return dict(getattr(tok.time_stats, "counters", {}))
+
+
 def merges_differing(got, ref) -> int:
     return sum(tuple(g) != tuple(r) for g, r in zip(got, ref)) + abs(len(got) - len(ref))
 
@@ -149,7 +160,8 @@ def train_jobs(run: Run, ctx: Context):
         _sync(ctx.device)
         t1 = time.perf_counter()
         phases = {k: (v.total_s, v.calls) for k, v in tok.time_stats.phases.items()}
-        run.jobs.append(Job(len(data), t1 - t0, len(tok.merges), phases, sliced is not None))
+        run.jobs.append(Job(len(data), t1 - t0, len(tok.merges), phases, sliced is not None,
+                            counters(tok)))
         if sliced is not None:
             run.traced_merges = sliced.merges
         answers.append(tok.merges)
@@ -194,11 +206,13 @@ def encode_calls(run: Run, ctx: Context):
             if i == 0 and trace_calls:
                 traced.enter_context(ctx.tracer.slice())
             p = i % len(pool)
+            before = counters(tok)
             t0 = time.perf_counter()
             out = tok.encode_batch(pool[p])
             t1 = time.perf_counter()
+            added = {k: n - before.get(k, 0) for k, n in counters(tok).items()}
             run.calls.append(Call(sum(map(len, pool[p])), len(pool[p]), sum(map(len, out)),
-                                  t1 - t0, i < trace_calls))
+                                  t1 - t0, i < trace_calls, added))
             if len(sample) < k:
                 sample.append((p, out))
             elif (j := pick.randrange(i + 1)) < k:

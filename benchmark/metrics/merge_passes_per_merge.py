@@ -1,0 +1,15 @@
+"""Trainer loop: merge passes a merge, the program's counter
+``merge_passes`` over its counter ``merges``, each summed over the window's
+jobs that no profiler slowed; one pass applies a group of merges. None
+where the jobs hold no such counters, as with a program that records
+none."""
+
+COUNTER = "merge_passes"
+
+
+def read(run):
+    jobs = [j for j in run.untraced_jobs() if COUNTER in j.counters and "merges" in j.counters]
+    merges = sum(j.counters["merges"] for j in jobs)
+    if not merges:
+        return None
+    return sum(j.counters[COUNTER] for j in jobs) / merges

@@ -16,6 +16,7 @@ class Job:
     merges: int
     phases: dict  # TimeStats phase -> (seconds, calls)
     traced: bool = False
+    counters: dict = field(default_factory=dict)  # the program's counters at the job's end
 
 
 @dataclass
@@ -27,6 +28,7 @@ class Call:
     ids: int
     seconds: float
     traced: bool = False
+    counters: dict = field(default_factory=dict)  # what the call added to the program's counters
 
 
 @dataclass

@@ -15,12 +15,16 @@ The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1`` also
 ``breakdown``, and last ``compared``. Without a card, with fewer cards
 than the cell needs, or with JAX or the JAX package loaded once the window
-has closed, it prints no result and exits non-zero.
+has closed, it prints no result and exits non-zero. So it does where the
+window has not opened ``SETUP_LIMIT_S`` seconds after the process started,
+the clock of ``setup_s``: it then prints the limit and the stack where
+set-up stood, on standard error.
 """
 
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import gc
 import json
 import os
@@ -34,6 +38,9 @@ if sys.path and Path(sys.path[0]).resolve() == ROOT / "benchmark":
     sys.path[0] = str(ROOT)  # the harness's modules are imported as ``benchmark.*``
 CACHE = ROOT / ".bench_cache"  # every compiler and kernel cache of a run, fixed in the checkout
 FORBIDDEN = ("jax", "jaxlib", "flax", "zigbpe_tpu")
+# Set-up that has not opened the window by then has stalled: on an H100 a
+# first run, which builds every kernel, has taken up to 40 s, later ones 10-15 s.
+SETUP_LIMIT_S = 180.0
 
 
 def process_age_s() -> float | None:
@@ -48,6 +55,17 @@ def process_age_s() -> float | None:
 
 
 _T0 = time.perf_counter() - (process_age_s() or 0.0)
+
+
+def limit_setup(limit_s: float = SETUP_LIMIT_S) -> None:
+    """Ends the process with code 1 and no result where the window has not
+    opened ``limit_s`` seconds after the process started (``_T0``):
+    ``faulthandler``'s own thread, which needs no interpreter lock, prints
+    ``Timeout`` and every thread's stack on standard error. A ``limited``
+    ``run_cell`` cancels it as the window opens."""
+    print(f"SETUP_LIMIT_S = {limit_s:g} s: a set-up still running then ends the run",
+          file=sys.stderr, flush=True)
+    faulthandler.dump_traceback_later(max(_T0 + limit_s - time.perf_counter(), 0.01), exit=True)
 
 
 def forbidden_modules(modules=None, names=FORBIDDEN) -> list[str]:
@@ -69,10 +87,11 @@ def card_line() -> str:
 
 
 def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
-             device, program=None) -> dict:
+             device, program=None, limited: bool = False) -> dict:
     """One run of ``workload`` on ``device``: the result as a dict, in the
     result line's order. Checks no card; the command line does. ``program``
-    puts another tokenizer class in ``BasicTokenizer``'s place."""
+    puts another tokenizer class in ``BasicTokenizer``'s place; ``limited``
+    cancels the set-up limit as the window opens."""
     import torch
 
     from benchmark import loops, spec
@@ -90,6 +109,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     def ready() -> float:
         now = time.perf_counter()
         run.setup_s = now - _T0
+        if limited:
+            faulthandler.cancel_dump_traceback_later()
         return now
 
     if device.type == "cuda":
@@ -126,6 +147,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 
 
 def main(argv=None) -> int:
+    limit_setup()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -153,8 +175,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     print(card_line(), file=sys.stderr)
-    result = run_cell(ROOT, args.workload, args.seed, args.seconds, bool(args.trace),
-                      torch.device("cuda", 0))
+    return report(run_cell(ROOT, args.workload, args.seed, args.seconds, bool(args.trace),
+                           torch.device("cuda", 0), limited=True))
+
+
+def report(result: dict) -> int:
+    """Print ``result`` as a run ends: its numbers on standard error, then
+    the result line; nothing, and a non-zero code, where JAX or the JAX
+    package has been loaded."""
     loaded = forbidden_modules()
     if loaded:
         print(f"loaded after the window: {', '.join(loaded)}", file=sys.stderr)
