@@ -204,16 +204,20 @@ def test_encode_batch_records_its_spans_and_rows(route):
     ts = tok.time_stats
     assert set(ts.spans) == ENCODE_SPANS
     assert all(acc.calls == 2 and acc.parent is None for acc in ts.spans.values())
-    assert ts.counters == {f"encode_rows.{route}": 2 * len(docs)}
+    ids = 2 * sum(map(len, out))
+    assert ts.counters == {f"encode_rows.{route}": 2 * len(docs),
+                           "encode_ids.shared": ids, "encode_ids.made": 0}
     assert not ts.phases
 
 
 def test_encode_batch_row_counters_sum_to_the_rows_across_routes():
     merges = oracle.train(TEXT[:4000], 300)
     tok = BasicTokenizer(merges, device="cpu")
-    tok.encode_batch([TEXT[:500]] * 3)
-    tok.encode_batch([TEXT[:500]] * 2, row_length=640)
-    assert tok.time_stats.counters == {"encode_rows.kernel": 3, "encode_rows.plain": 2}
+    a = tok.encode_batch([TEXT[:500]] * 3)
+    b = tok.encode_batch([TEXT[:500]] * 2, row_length=640)
+    assert tok.time_stats.counters == {"encode_rows.kernel": 3, "encode_rows.plain": 2,
+                                       "encode_ids.shared": sum(map(len, a + b)),
+                                       "encode_ids.made": 0}
     assert tok.time_stats.spans["encode.lists"].calls == 2
 
 

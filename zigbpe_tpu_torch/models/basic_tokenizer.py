@@ -21,6 +21,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..native import lists as native_lists
 from ..ops import core
 from ..ops import encode_batch as eb
 from ..ops.kernels import encode as kenc
@@ -136,10 +137,14 @@ class BasicTokenizer:
         lengths take the plain per-merge batch replay. The choice is by
         shape only.
 
+        The lists hold the vocabulary's ints from one shared table
+        (``native.lists``), or new ints where its library cannot be built.
+
         Each call records the spans ``encode.pad``, ``encode.schedule``,
-        ``encode.kernel``, ``encode.copy`` and ``encode.lists``, and counts
-        its rows under ``encode_rows.kernel`` or ``encode_rows.plain``, in
-        ``self.time_stats``."""
+        ``encode.kernel``, ``encode.copy`` and ``encode.lists``, counts its
+        rows under ``encode_rows.kernel`` or ``encode_rows.plain``, and its
+        ids under ``encode_ids.shared`` (from the table) and
+        ``encode_ids.made`` (new ints), in ``self.time_stats``."""
         if not docs:
             return []
         docs = [d.encode("utf-8") if isinstance(d, str) else bytes(d) for d in docs]
@@ -168,7 +173,10 @@ class BasicTokenizer:
         with ts.span("encode.copy"):
             out = out.cpu()
         with ts.span("encode.lists"):
-            return [out[i, :n].tolist() for i, n in enumerate(lengths.tolist())]
+            ids, shared, made = native_lists.row_lists(out, lengths, self.vocab_size)
+        ts.count("encode_ids.shared", shared)
+        ts.count("encode_ids.made", made)
+        return ids
 
     def _grouped_tables(self):
         if self._grouped_merges is None:
